@@ -30,7 +30,35 @@ order (each phase aborts the script with a non-zero exit on failure):
    in turns;
 7. profiles one flagship forward: device time by kernel, the device's
    busy share, peak device memory;
-8. prints the kernels' JSON line, the card line, and the final JSON line.
+8. holds the backward kernels against their plain versions at the four
+   flagship levels and one shape with channel tails: kernel C
+   (``conv3x3x3_dx``) |k - p| <= 2^-7 |p| + 1e-3 max|p| with its sums at
+   rtol 1e-3, atol 1e-3 max|p| and a zero ring; kernel D
+   (``conv3x3x3_wgrad``) rtol 1e-3, atol 1e-3 max|p|; kernel E
+   (``max_pool_buf_bwd``) dx bit-equal, d(affine) rtol 1e-3, atol 1e-3
+   max|p| (gradients are small, so every atol is relative to the largest
+   magnitude of the tensor);
+9. drives the training step of the flagship model (seed 0) on
+   ``bench.py``'s batch (numpy seed 0, 2% of 96^3 voxels occupied, labels
+   0..62 there, -1 elsewhere), SGD lr 0.01, momentum 0.9, through
+   ``make_train_step``: one step against the plain step on the card from
+   the initial state and again after 100 steps (loss within 1%, all
+   parameters' gradients together at cosine >= 0.98, each parameter's at
+   cosine >= 0.9 and max error <= 50% of its max |g|: bf16 gradients are
+   noisy, and two kernel steps from one state differ by more than 0.99 /
+   5%), with the spread of two kernel steps and
+   both bf16 steps' distance from an f32 step printed at the initial
+   state; launches per step (counts zeroed just before), in a step that
+   runs with host syncs turned into errors; 3 warm-up and 20 timed steps
+   (losses kept on the device, one fetch); a falling loss;
+   a profile of one step; and a ``training_layers=["final_conv"]`` step
+   that launches no backward kernel and leaves the trunk bit-identical;
+10. holds every launch of kernels C, D and E in one training step
+   (recorded inputs) against its plain version at phase 8's tolerances
+   and times it as phase 6 does, against one library call
+   (``aten.convolution_backward`` in bf16, channels-last, for C and D;
+   ``max_pool3d_with_indices_backward`` for E) and its bound;
+11. prints the kernels' JSON line, the card line, and the final JSON line.
 
 It exits non-zero without a result when CUDA is not available. Scratch
 files go under ``build/chip_smoke/``.
@@ -63,6 +91,22 @@ LABELS = [f"S.{i:02d}._left" for i in range(62)] + ["unknown"]
 LOGIT_TOL = 0.02
 # graph replays between one pair of CUDA events, per timed turn
 REPS = 10
+# the flagship training step (bench.py:30-45)
+VOLUME = (96, 96, 96)
+CLASSES = 63
+TRAIN_LR = 0.01
+WARMUP, STEPS = 3, 20
+# a step against the plain step on the card. bf16 gradients of this step
+# are noisy: two kernel steps from one state, which differ only in the
+# order of f32 atomic sums, differ per parameter by up to cosine 0.97 and
+# max |dg| / max |g| 0.28 on the deep encoder, and each bf16 step is
+# further still from an f32 step (PERF.md, "Training step"). So the loss
+# is held to 1%, all parameters' gradients together to cosine 0.98, and
+# each parameter's to cosine 0.9 and max |dg| <= 50% of its max |g|: bars
+# a wrong kernel, branch or layout breaks, and the noise does not.
+LOSS_RTOL, GLOBAL_COS, GRAD_COS, GRAD_ERR = 0.01, 0.98, 0.9, 0.5
+# the trained state of the second comparison, in steps from the initial one
+TRAINED_STEPS = 100
 
 
 def fail(msg):
@@ -115,6 +159,29 @@ def event_ms(graph, reps):
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def timed_row(name, shape, kern, plain, lib, bound, err):
+    """One launch's row: ``kern``, ``plain`` and ``lib`` each captured as
+    a CUDA graph and timed in turns (plain, kernel, library, kernel; three
+    times), medians in ms, beside the bound and the max abs error."""
+    gk, gp, gl = capture(kern), capture(plain), capture(lib)
+    sync()
+    ms_k, ms_p, ms_l = [], [], []
+    for _ in range(3):
+        ms_p.append(event_ms(gp, REPS))
+        ms_k.append(event_ms(gk, REPS))
+        ms_l.append(event_ms(gl, REPS))
+        ms_k.append(event_ms(gk, REPS))
+    del gk, gp, gl
+    row = dict(shape=shape, ms=statistics.median(ms_k),
+               plain_ms=statistics.median(ms_p),
+               library_ms=statistics.median(ms_l), bound_ms=bound,
+               max_abs_err=err)
+    print(f"  {name} {shape}: kernel {row['ms']:.4f} ms, plain "
+          f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} "
+          f"ms, bound {bound:.4f} ms, max|err| {err:.3g}", flush=True)
+    return row
 
 
 def rand_buffer(g, c, gen, dev):
@@ -186,6 +253,110 @@ def pool_library_call(buf, aff, g):
                     float("-inf"))
     v5 = v.permute(3, 0, 1, 2)[None]  # channels-last view
     return lambda: F.max_pool3d(v5, 2, 2)
+
+
+def dx_bound(dconv, x):
+    """Kernel C: the FLOP of its branch's forward conv; reads dconv's and
+    x's interiors and the weights, writes dx with its ring."""
+    xp, yp, zp, cout = dconv.shape
+    cin = int(x.shape[3])
+    vox = (xp - 2) * (yp - 2) * (zp - 2)
+    flops = 2.0 * vox * 27 * cin * cout
+    nbytes = 2.0 * (vox * (cout + cin) + xp * yp * zp * cin) \
+        + 2.0 * 27 * cin * cout + 4.0 * 4 * cin
+    return max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
+
+
+def wgrad_bound(x, dconv):
+    """Kernel D: the FLOP of its branch's forward conv; reads x's and
+    dconv's interiors, writes the f32 dW."""
+    xp, yp, zp, cin = x.shape
+    cout = int(dconv.shape[3])
+    vox = (xp - 2) * (yp - 2) * (zp - 2)
+    flops = 2.0 * vox * 27 * cin * cout
+    nbytes = 2.0 * vox * (cin + cout) + 4.0 * 27 * cin * cout + 8.0 * cin
+    return max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
+
+
+def pool_bwd_bound(buf):
+    """Kernel E: reads x's interior and the pooled output's and
+    cotangent's interiors, writes dx with its ring; 6 operations per
+    input value (affine 2, compare, scale, two sums)."""
+    xp, yp, zp, c = buf.shape
+    vox = (xp - 2) * (yp - 2) * (zp - 2)
+    ovox = ((xp - 2) // 2 + 1) * ((yp - 2) // 2 + 1) * ((zp - 2) // 2 + 1)
+    nbytes = 2.0 * c * (vox + 2 * ovox + xp * yp * zp) + 16.0 * c
+    ops = 6.0 * vox * c
+    return max(ops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES) * 1e3
+
+
+def conv_bwd_library_call(x, aff, dconv, weight_b, g, output_mask):
+    """cuDNN's conv3d backward (``aten.convolution_backward``) in bf16,
+    channels-last, on the pre-normalized input: dx for output_mask
+    [True, False, False], dW for [False, True, False] (a yardstick; the
+    port never calls it)."""
+    from unetsulc_tpu_torch.ops import conv_fused as cf
+
+    xn = torch.where(cf.interior_mask(g, x.device), cf.apply_affine(x, aff), 0)
+    inp = cf.unpad_from_geom(xn, g)[0].contiguous().permute(3, 0, 1, 2)[None]
+    go = cf.unpad_from_geom(dconv, g)[0].contiguous().permute(3, 0, 1, 2)[None]
+    w = weight_b.to(torch.bfloat16).contiguous(
+        memory_format=torch.channels_last_3d)
+    return lambda: torch.ops.aten.convolution_backward(
+        go, inp, w, None, [1, 1, 1], [1, 1, 1], [1, 1, 1], False, [0, 0, 0],
+        1, output_mask)
+
+
+def pool_bwd_library_call(buf, aff, cot, g):
+    """``aten.max_pool3d_with_indices_backward`` on the -inf-padded
+    normalized buffer, channels-last (a yardstick)."""
+    from unetsulc_tpu_torch.ops import conv_fused as cf
+
+    v = torch.where(cf.interior_mask(g, buf.device), cf.apply_affine(buf, aff),
+                    float("-inf"))
+    v5 = v.permute(3, 0, 1, 2)[None]  # channels-last view
+    _, idx = torch.ops.aten.max_pool3d_with_indices(v5, [2, 2, 2], [2, 2, 2])
+    go = cf.unpad_from_geom(cot, cf.pool_geom(g))[0].contiguous().permute(
+        3, 0, 1, 2)[None]
+    return lambda: torch.ops.aten.max_pool3d_with_indices_backward(
+        go, v5, [2, 2, 2], [2, 2, 2], [0, 0, 0], [1, 1, 1], False, idx)
+
+
+def check_grad(k, p, rtol, what):
+    """|k - p| <= rtol |p| + 1e-3 max|p|: gradients are small, so the
+    absolute part is relative to the tensor's largest magnitude."""
+    atol = 1e-3 * p.abs().max().item()
+    torch.testing.assert_close(k.float(), p.float(), rtol=rtol, atol=atol,
+                               msg=lambda m: f"{what}: {m}")
+    return (k.float() - p.float()).abs().max().item()
+
+
+def check_dx(out_k, out_p, what):
+    """Kernel C against its plain version: dx, sums, ring."""
+    (dk, sk), (dp, sp) = out_k, out_p
+    err = check_grad(dk, dp, 2 ** -7, f"kernel C dx ({what})")
+    check_grad(sk, sp, 1e-3, f"kernel C sums ({what})")
+    check(ring_is_zero(dk), f"kernel C ring not zero ({what})")
+    return err
+
+
+def check_pool_bwd(out_k, out_p, what):
+    """Kernel E against its plain version: dx bit-equal, d(affine)."""
+    (dk, ak), (dp, ap) = out_k, out_p
+    check(dk.dtype == dp.dtype and torch.equal(dk, dp),
+          f"kernel E dx differs from its plain version ({what})")
+    check((ak is None) == (ap is None), f"kernel E d(affine) ({what})")
+    if ak is not None:
+        check_grad(ak, ap, 1e-3, f"kernel E d(affine) ({what})")
+    return 0.0
+
+
+def rand_grad(g, c, gen, dev, scale=1e-4):
+    """bf16 cotangent-like buffer of both signs, small, with a zero ring."""
+    from unetsulc_tpu_torch.ops import conv_fused as cf
+
+    d = scale * torch.randn((g.X, g.Y, g.Z, c), generator=gen, device=dev)
+    return cf.pad_to_geom(d[None].to(torch.bfloat16), g).contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -299,46 +470,68 @@ def make_inputs(dev):
     return graphs, params, model
 
 
+# each kernel's dispatcher in ops/conv_fused.py
+DISPATCH = {
+    "conv3x3x3_fwd": "conv_fwd",
+    "conv3x3x3_dx": "conv_dx",
+    "conv3x3x3_wgrad": "conv_wgrad",
+    "max_pool_buf_fwd": "pool_fwd",
+    "max_pool_buf_bwd": "pool_bwd",
+}
+
+
 @contextlib.contextmanager
-def patched_ops(conv, pool):
-    """Route the model's two kernel ops (``fused_conv_block``,
-    ``max_pool_buf``) to ``conv`` and ``pool`` for the duration."""
+def patched_ops(**fns):
+    """Replace the named kernel dispatchers of ``ops/conv_fused.py``
+    (``conv_fwd``, ``conv_dx``, ``conv_wgrad``, ``pool_fwd``,
+    ``pool_bwd``) for the duration."""
     from unetsulc_tpu_torch.ops import conv_fused as cf
 
-    saved = cf.fused_conv_block, cf.max_pool_buf
-    cf.fused_conv_block, cf.max_pool_buf = conv, pool
+    saved = {name: getattr(cf, name) for name in fns}
+    for name, fn in fns.items():
+        setattr(cf, name, fn)
     try:
         yield
     finally:
-        cf.fused_conv_block, cf.max_pool_buf = saved
+        for name, fn in saved.items():
+            setattr(cf, name, fn)
+
+
+def plain_fns():
+    """Each kernel's plain version, by kernel name, with its dispatcher's
+    signature (the packed weights are the kernels' own and unused)."""
+    from unetsulc_tpu_torch.ops import conv_fused as cf
+
+    return {
+        "conv3x3x3_fwd": lambda xs, affs, w, b, g, packed=None:
+            cf.fused_conv_block_plain(xs, affs, w, b, g),
+        "conv3x3x3_dx": lambda dconv, w, cins, br, aff, x, g, packed=None:
+            cf.conv3x3x3_dx_plain(dconv, w, cins, br, aff, x, g),
+        "conv3x3x3_wgrad": cf.conv3x3x3_wgrad_plain,
+        "max_pool_buf_fwd": cf.max_pool_buf_plain,
+        "max_pool_buf_bwd": cf.max_pool_buf_bwd_plain,
+    }
 
 
 def plain_ops():
-    """The plain versions (on the card), for the reference forward; the
-    plain conv reads the raw weight, not kernel A's packed one."""
+    """Every kernel's plain version (on the card) in place of the kernel,
+    for the reference forward and train step."""
+    return patched_ops(**{DISPATCH[k]: fn for k, fn in plain_fns().items()})
+
+
+def recording(calls, names):
+    """Record the inputs of every call of the kernels ``names`` as
+    (kernel name, args, kwargs); the calls still run their kernels."""
     from unetsulc_tpu_torch.ops import conv_fused as cf
 
-    def conv(*args, packed=None):
-        return cf.fused_conv_block_plain(*args)
+    def rec(name, fn):
+        def call(*args, **kw):
+            calls.append((name, args, kw))
+            return fn(*args, **kw)
+        return call
 
-    return patched_ops(conv, cf.max_pool_buf_plain)
-
-
-def recording(calls):
-    """Record the inputs of every kernel op call of the model."""
-    from unetsulc_tpu_torch.ops import conv_fused as cf
-
-    conv, pool = cf.fused_conv_block, cf.max_pool_buf
-
-    def rec_conv(*args, **kw):
-        calls.append(("conv3x3x3_fwd", args, kw))
-        return conv(*args, **kw)
-
-    def rec_pool(*args):
-        calls.append(("max_pool_buf_fwd", args, {}))
-        return pool(*args)
-
-    return patched_ops(rec_conv, rec_pool)
+    return patched_ops(**{DISPATCH[n]: rec(n, getattr(cf, DISPATCH[n]))
+                          for n in names})
 
 
 def volume_of(graph, dev):
@@ -464,21 +657,21 @@ def phase_timing(model, x):
     from unetsulc_tpu_torch.ops import conv_fused as cf
 
     calls = []
-    with recording(calls):
+    with recording(calls, ["conv3x3x3_fwd", "max_pool_buf_fwd"]):
         model(x, train=False, apply_final_activation=False, padded_output=True)
     sync()
     rows = {"conv3x3x3_fwd": [], "max_pool_buf_fwd": []}
     for name, args, kw in calls:
         if name == "conv3x3x3_fwd":
-            xs, affs, w, b, g = args
-            kern = lambda: cf.fused_conv_block(xs, affs, w, b, g, **kw)  # noqa: E731
+            xs, affs, w, b, g = args[:5]
+            kern = lambda: cf.conv_fwd(*args, **kw)  # noqa: E731
             plain = lambda: cf.fused_conv_block_plain(xs, affs, w, b, g)  # noqa: E731
             lib = conv_library_call(xs, affs, w, b, g)
             bound, _, _ = conv_bound(xs, int(w.shape[0]))
             shape = f"{'+'.join(str(int(v.shape[3])) for v in xs)}->{int(w.shape[0])} @{g.X}x{g.Y}x{g.Z}"
         else:
             buf, aff, g = args
-            kern = lambda: cf.max_pool_buf(buf, aff, g)  # noqa: E731
+            kern = lambda: cf.pool_fwd(buf, aff, g)  # noqa: E731
             plain = lambda: cf.max_pool_buf_plain(buf, aff, g)  # noqa: E731
             lib = pool_library_call(buf, aff, g)
             bound = pool_bound(buf)
@@ -498,24 +691,7 @@ def phase_timing(model, x):
         check(ring_is_zero(yk), f"{name} ring not zero at {shape}")
         err = (yk.float() - yp.float()).abs().max().item()
         del out_k, out_p, yk, yp
-        gk, gp, gl = capture(kern), capture(plain), capture(lib)
-        sync()
-        # in turns: plain, kernel, library, kernel, plain, ...
-        ms_k, ms_p, ms_l = [], [], []
-        for _ in range(3):
-            ms_p.append(event_ms(gp, REPS))
-            ms_k.append(event_ms(gk, REPS))
-            ms_l.append(event_ms(gl, REPS))
-            ms_k.append(event_ms(gk, REPS))
-        del gk, gp, gl
-        row = dict(shape=shape, ms=statistics.median(ms_k),
-                   plain_ms=statistics.median(ms_p),
-                   library_ms=statistics.median(ms_l), bound_ms=bound,
-                   max_abs_err=err)
-        rows[name].append(row)
-        print(f"  {name} {shape}: kernel {row['ms']:.4f} ms, plain "
-              f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} "
-              f"ms, bound {bound:.4f} ms, max|err| {err:.3g}", flush=True)
+        rows[name].append(timed_row(name, shape, kern, plain, lib, bound, err))
     return rows
 
 
@@ -555,6 +731,334 @@ def phase_profile(model, x):
         print(f"    {ms:9.3f} ms {count:4d}x  {key[:90]}", flush=True)
 
 
+@torch.no_grad()
+def phase_backward_checks(dev):
+    """Kernels C, D, E against their plain versions at the flagship levels
+    and one shape with channel tails; returns each kernel's max |error|."""
+    from unetsulc_tpu_torch.ops import conv_fused as cf
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    worst = {"conv3x3x3_dx": 0.0, "conv3x3x3_wgrad": 0.0,
+             "max_pool_buf_bwd": 0.0}
+    cases = [
+        ("enc0.conv2 32->64 @96^3", (96, 96, 96), [32], 64),
+        ("dec2.conv1 64+128->64 @96^3", (96, 96, 96), [64, 128], 64),
+        ("enc1.conv2 64->128 @49^3", (49, 49, 49), [64], 128),
+        ("dec0.conv1 256+512->256 @25^3", (25, 25, 25), [256, 512], 256),
+        ("enc3.conv2 256->512 @13^3", (13, 13, 13), [256], 512),
+        ("tails 12+20->10 @7x9x5", (7, 9, 5), [12, 20], 10),
+    ]
+    for name, ext, cins, cout in cases:
+        g = cf.make_geom(*ext)
+        xs = [rand_buffer(g, c, gen, dev) for c in cins]
+        affs = [rand_affine(c, gen, dev) for c in cins]
+        w = torch.randn((cout, sum(cins), 3, 3, 3), generator=gen, device=dev) \
+            * (27 * sum(cins)) ** -0.5
+        dconv = rand_grad(g, cout, gen, dev)
+        for b in range(len(cins)):
+            what = f"{name} branch {b}"
+            out_k = cf.conv_dx(dconv, w, cins, b, affs[b], xs[b], g)
+            wk = cf.conv_wgrad(xs[b], affs[b], dconv, g)
+            sync()
+            out_p = cf.conv3x3x3_dx_plain(dconv, w, cins, b, affs[b], xs[b], g)
+            wp = cf.conv3x3x3_wgrad_plain(xs[b], affs[b], dconv, g)
+            sync()
+            e_c = check_dx(out_k, out_p, what)
+            e_d = check_grad(wk, wp, 1e-3, f"kernel D ({what})")
+            worst["conv3x3x3_dx"] = max(worst["conv3x3x3_dx"], e_c)
+            worst["conv3x3x3_wgrad"] = max(worst["conv3x3x3_wgrad"], e_d)
+            print(f"  C {what}: max|ddx|={e_c:.3g} (max|dx| "
+                  f"{out_p[0].float().abs().max().item():.3g}); D: max|ddW|="
+                  f"{e_d:.3g} (max|dW| {wp.abs().max().item():.3g})",
+                  flush=True)
+    for ext, c in (((96,) * 3, 64), ((49,) * 3, 128), ((25,) * 3, 256),
+                   ((9, 8, 11), 12)):
+        g = cf.make_geom(*ext)
+        buf = rand_buffer(g, c, gen, dev)
+        for aff in (rand_affine(c, gen, dev), None):
+            out = cf.pool_fwd(buf, aff, g)
+            cot = rand_grad(cf.pool_geom(g), c, gen, dev)
+            out_k = cf.pool_bwd(buf, aff, out, cot, g)
+            sync()
+            out_p = cf.max_pool_buf_bwd_plain(buf, aff, out, cot, g)
+            sync()
+            check_pool_bwd(out_k, out_p, f"{ext}x{c}")
+        print(f"  E {'x'.join(map(str, ext))} x {c}: dx bit-equal with and "
+              "without an affine, d(affine) within rtol 1e-3", flush=True)
+    return worst
+
+
+def make_batch(dev):
+    """bench.py:38-45's batch: numpy seed 0, 2% of the voxels occupied,
+    labels 0..62 there and -1 elsewhere."""
+    rng = np.random.default_rng(0)
+    inputs = (rng.random((1, *VOLUME, 1)) < 0.02).astype(np.float32)
+    labels = np.where(inputs[..., 0] > 0,
+                      rng.integers(0, CLASSES, (1, *VOLUME)), -1)
+    return (torch.from_numpy(inputs).to(dev),
+            torch.from_numpy(labels.astype(np.int64)).to(dev))
+
+
+def param_distances(ga, gb):
+    """Per parameter of gradients ``ga`` and ``gb``: (1 - cosine,
+    max |ga - gb| / max |gb|)."""
+    out = {}
+    for n, b in gb.items():
+        u, v = ga[n].double().flatten(), b.double().flatten()
+        cos = (u @ v / (u.norm() * v.norm()).clamp_min(1e-300)).item()
+        err = (u - v).abs().max().item() / max(v.abs().max().item(), 1e-300)
+        out[n] = (1.0 - cos, err)
+    return out
+
+
+def global_cosine(ga, gb):
+    """Cosine of all parameters' gradients together."""
+    u = torch.cat([ga[n].double().flatten() for n in gb])
+    v = torch.cat([gb[n].double().flatten() for n in gb])
+    return (u @ v / (u.norm() * v.norm()).clamp_min(1e-300)).item()
+
+
+def worst(dists):
+    """(worst 1 - cosine, its parameter, worst error, its parameter)."""
+    c = max(dists, key=lambda n: dists[n][0])
+    e = max(dists, key=lambda n: dists[n][1])
+    return dists[c][0], c, dists[e][1], e
+
+
+def kernel_class(key):
+    """Which of the port's kernels a profiler entry is, or "plain"."""
+    if "conv3x3x3_wgrad_kernel" in key:
+        return "D"
+    if "conv3x3x3_kernel" in key:
+        return "C" if ("<true>" in key or "<(bool)1>" in key) else "A"
+    if "max_pool_buf_bwd_kernel" in key:
+        return "E"
+    if "max_pool_buf_fwd_kernel" in key:
+        return "B"
+    return "plain"
+
+
+def step_against_plain(model, step, x, labels, where, f32_model=None):
+    """One step from the model's current state through the kernels
+    (twice: their spread is printed) and through the plain versions on the
+    card, each at lr 0 so the state stays as it is; held to ``LOSS_RTOL``,
+    ``GLOBAL_COS``, ``GRAD_COS`` and ``GRAD_ERR``. With ``f32_model`` (the
+    same parameters, f32 compute), also prints both bf16 steps' distance
+    from its plain step."""
+    from unetsulc_tpu_torch.train.step import TrainState, make_train_step
+
+    def run(m, step_fn, plain):
+        probe = TrainState.create(m, lr=0.0)
+        with plain_ops() if plain else contextlib.nullcontext():
+            loss, counts = step_fn(probe, x, labels)
+        sync()
+        return loss.item(), counts, {
+            n: p.grad.detach().clone() for n, p in m.named_parameters()}
+
+    (lk, ck, gk), (_, _, gk2) = run(model, step, False), run(model, step, False)
+    lp, cp, gp = run(model, step, True)
+    print(f"  {where}: loss {lk:.6f} vs plain {lp:.6f} (rel "
+          f"{abs(lk - lp) / abs(lp):.2e}); confusion counts equal: "
+          f"{bool(torch.equal(ck, cp))}", flush=True)
+    kp = param_distances(gk, gp)
+    rows = [("kernel step vs kernel step", param_distances(gk, gk2),
+             global_cosine(gk, gk2)),
+            ("kernel step vs plain step", kp, global_cosine(gk, gp))]
+    if f32_model is not None:
+        with torch.no_grad():
+            f32_model.load_state_dict(model.state_dict())
+        l32, _, g32 = run(f32_model,
+                          make_train_step(f32_model, CLASSES, momentum=0.9),
+                          True)
+        print(f"    f32 plain step loss {l32:.6f}", flush=True)
+        rows += [("kernel step vs f32 step", param_distances(gk, g32),
+                  global_cosine(gk, g32)),
+                 ("plain step vs f32 step", param_distances(gp, g32),
+                  global_cosine(gp, g32))]
+    for label, d, gcos in rows:
+        c, cn, e, en = worst(d)
+        print(f"    {label}: all-parameter cosine {gcos:.6f}; worst cosine "
+              f"{1.0 - c:.6f} ({cn}); worst max|dg| / max|g| {e:.4f} ({en})",
+              flush=True)
+    c, _, e, _ = worst(kp)
+    gcos = rows[1][2]
+    check(abs(lk - lp) <= LOSS_RTOL * abs(lp),
+          f"loss differs from the plain step ({where})")
+    check(gcos >= GLOBAL_COS,
+          f"all-parameter gradient cosine {gcos} < {GLOBAL_COS} ({where})")
+    check(1.0 - c >= GRAD_COS, f"gradient cosine {1.0 - c} < {GRAD_COS} ({where})")
+    check(e <= GRAD_ERR, f"gradient error {e} > {GRAD_ERR} ({where})")
+    return dict(loss=lk, plain_loss=lp, global_cos=gcos, cos=1.0 - c, err=e)
+
+
+def phase_train(dev):
+    """The flagship training step end to end (see the module docstring)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from unetsulc_tpu_torch import kernels
+    from unetsulc_tpu_torch.models.unet3d import UNet3D
+    from unetsulc_tpu_torch.train.step import TrainState, make_train_step
+
+    model = UNet3D(in_channels=1, out_channels=CLASSES,
+                   init_channel_number=64, device=dev, seed=0)
+    x, labels = make_batch(dev)
+    step = make_train_step(model, CLASSES, momentum=0.9)
+
+    # the step against the plain step from the initial state, and both
+    # against an f32 step (a model of the same parameters with f32
+    # compute, moved to the card: the plain versions take f32)
+    f32_model = UNet3D(in_channels=1, out_channels=CLASSES,
+                       init_channel_number=64, device="cpu", seed=0,
+                       compute_dtype=torch.float32).to(dev)
+    at_init = step_against_plain(model, step, x, labels, "initial state",
+                                 f32_model)
+    del f32_model
+
+    # 3 warm-up and 20 timed steps, losses on the device and one fetch at
+    # the end (bench.py:92-106); launch counts zeroed just before the
+    # first, which runs with host syncs turned into errors: the step never
+    # waits for the device
+    state = TrainState.create(model, lr=TRAIN_LR)
+    kernels.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        losses = [step(state, x, labels)[0]]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    sync()
+    print("  a step under torch.cuda.set_sync_debug_mode('error'): no host "
+          "sync", flush=True)
+    launches = dict(kernels.launch_counts)
+    print(f"  launches per train step: {launches}", flush=True)
+    want = {"conv3x3x3_fwd": 13, "max_pool_buf_fwd": 3, "conv3x3x3_dx": 16,
+            "conv3x3x3_wgrad": 16, "max_pool_buf_bwd": 3}
+    check(launches == want, f"launches per step {launches}, expected {want}")
+    for _ in range(WARMUP - 1):
+        losses.append(step(state, x, labels)[0])
+    losses[-1].item()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    for _ in range(STEPS):
+        losses.append(step(state, x, labels)[0])
+    curve = torch.stack(losses).cpu()
+    dt = time.perf_counter() - t
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    step_ms = dt / STEPS * 1e3
+    vox_s = np.prod(VOLUME) * STEPS / dt
+    print(f"train step 96^3 flagship bf16: {step_ms:.2f} ms/step, "
+          f"{vox_s:.1f} voxels/s, peak device memory {peak_gb:.2f} GB "
+          f"({STEPS} steps after {WARMUP} warm-up)", flush=True)
+    print("  loss by step: " + ", ".join(f"{v:.4f}" for v in curve.tolist()),
+          flush=True)
+    check(bool(torch.isfinite(curve).all()), "non-finite loss")
+    check(curve[-1].item() < curve[0].item(),
+          f"loss did not fall: step {len(curve)} {curve[-1].item():.4f} >= "
+          f"step 1 {curve[0].item():.4f}")
+
+    # the step against the plain step again from a trained state, where
+    # the bf16 gradients are far less noisy than at the initial state
+    while state.step < TRAINED_STEPS:
+        step(state, x, labels)
+    trained = step_against_plain(model, step, x, labels,
+                                 f"state after {TRAINED_STEPS} steps")
+
+    # where one step's time goes
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        step(state, x, labels)
+        sync()
+        prof_ms = (time.perf_counter() - t) * 1e3
+    by_class, plain = {}, []
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            k = kernel_class(e.key)
+            ms = e.self_device_time_total / 1e3
+            by_class[k] = by_class.get(k, 0.0) + ms
+            if k == "plain":
+                plain.append((ms, e.count, e.key))
+    busy = sum(by_class.values())
+    if busy:
+        print(f"  one step under the profiler: {prof_ms:.2f} ms host clock, "
+              f"device busy {busy:.2f} ms = {busy / prof_ms * 100:.1f}%; "
+              + ", ".join(f"{k} {v:.2f} ms" for k, v in sorted(by_class.items())),
+              flush=True)
+        for ms, count, key in sorted(plain, reverse=True)[:10]:
+            print(f"    {ms:9.3f} ms {count:4d}x  {key[:90]}", flush=True)
+    else:
+        print("  device busy share: not measured (the profiler saw no device "
+              "time)", flush=True)
+
+    # a head-only step: no backward kernel, the trunk bit-identical
+    fstate = TrainState.create(model, lr=TRAIN_LR,
+                               training_layers=["final_conv"])
+    trunk = {n: p.detach().clone() for n, p in model.named_parameters()
+             if not n.startswith("final_conv")}
+    kernels.reset_launch_counts()
+    step(fstate, x, labels)
+    sync()
+    frozen = dict(kernels.launch_counts)
+    print(f"  launches of a final_conv-only step: {frozen}", flush=True)
+    check(all(frozen[k] == 0 for k in
+              ("conv3x3x3_dx", "conv3x3x3_wgrad", "max_pool_buf_bwd")),
+          "a final_conv-only step launched a backward kernel")
+    check(all(torch.equal(p, trunk[n]) for n, p in model.named_parameters()
+              if n in trunk), "a frozen trunk parameter changed")
+    stats = dict(step_ms=step_ms, voxels_per_s=vox_s, peak_gb=peak_gb,
+                 loss_first=curve[0].item(), loss_last=curve[-1].item(),
+                 at_init=at_init, trained=trained)
+    return launches, stats, model, step, x, labels
+
+
+def phase_backward_timing(model, step, x, labels):
+    """Every C, D, E launch of one training step, recorded, held to its
+    plain version and timed. The recorded step runs at lr 0, so the weights
+    that the launches read are still those of the recorded inputs."""
+    from unetsulc_tpu_torch.ops import conv_fused as cf
+    from unetsulc_tpu_torch.train.step import TrainState
+
+    names = ["conv3x3x3_dx", "conv3x3x3_wgrad", "max_pool_buf_bwd"]
+    calls = []
+    with recording(calls, names):
+        step(TrainState.create(model, lr=0.0), x, labels)
+    sync()
+    plain_of = plain_fns()
+    rows = {n: [] for n in names}
+    with torch.no_grad():
+        for name, args, kw in calls:
+            kern = lambda: getattr(cf, DISPATCH[name])(*args, **kw)  # noqa: E731
+            plain = lambda: plain_of[name](*args)  # noqa: E731
+            if name == "conv3x3x3_dx":
+                dconv, w, cins, br, aff, xb, g = args[:7]
+                c0 = sum(cins[:br])
+                lib = conv_bwd_library_call(xb, aff, dconv,
+                                            w[:, c0:c0 + cins[br]], g,
+                                            [True, False, False])
+                bound = dx_bound(dconv, xb)
+                shape = f"{cins[br]}<-{int(w.shape[0])} @{g.X}x{g.Y}x{g.Z}"
+                err = check_dx(kern(), plain(), shape)
+            elif name == "conv3x3x3_wgrad":
+                xb, aff, dconv, g = args
+                ci, co = int(xb.shape[3]), int(dconv.shape[3])
+                lib = conv_bwd_library_call(
+                    xb, aff, dconv,
+                    torch.zeros((co, ci, 3, 3, 3), device=xb.device), g,
+                    [False, True, False])
+                bound = wgrad_bound(xb, dconv)
+                shape = f"{ci}x{co} @{g.X}x{g.Y}x{g.Z}"
+                err = check_grad(kern(), plain(), 1e-3, f"kernel D {shape}")
+            else:
+                buf, aff, out, cot, g = args
+                lib = pool_bwd_library_call(buf, aff, cot, g)
+                bound = pool_bwd_bound(buf)
+                shape = f"{int(buf.shape[3])} @{g.X}x{g.Y}x{g.Z}"
+                err = check_pool_bwd(kern(), plain(), shape)
+            sync()
+            rows[name].append(timed_row(name, shape, kern, plain, lib, bound,
+                                        err))
+    return rows
+
+
 def main():
     if not torch.cuda.is_available():
         print("CUDA is not available: chip_smoke.py needs an NVIDIA GPU",
@@ -581,22 +1085,47 @@ def main():
     rows = phase_timing(model, x)
     print("phase 7: where one flagship forward's time goes", flush=True)
     phase_profile(model, x)
+    del model, x
+    print("phase 8: kernels C, D, E against their plain versions", flush=True)
+    err_bwd = phase_backward_checks(dev)
+    print("phase 9: the flagship training step", flush=True)
+    train_launches, train, tmodel, step, xb, lb = phase_train(dev)
+    print("phase 10: kernel times over one flagship training step's "
+          "backward", flush=True)
+    rows.update(phase_backward_timing(tmodel, step, xb, lb))
 
     meta = {
         "conv3x3x3_fwd": ("unetsulc_tpu_torch/csrc/conv3x3x3_fwd.cu",
-                          "unetsulc_tpu/ops/conv_pallas.py:370", "operations"),
+                          "unetsulc_tpu/ops/conv_pallas.py:370", "operations",
+                          "one 96^3 flagship forward"),
         "max_pool_buf_fwd": ("unetsulc_tpu_torch/csrc/max_pool_buf_fwd.cu",
-                             "unetsulc_tpu/ops/conv_pallas.py:1653", "bytes"),
+                             "unetsulc_tpu/ops/conv_pallas.py:1653", "bytes",
+                             "one 96^3 flagship forward"),
+        "conv3x3x3_dx": ("unetsulc_tpu_torch/csrc/conv3x3x3_fwd.cu",
+                         "unetsulc_tpu/ops/conv_pallas.py:370", "operations",
+                         "one 96^3 flagship training step"),
+        "conv3x3x3_wgrad": ("unetsulc_tpu_torch/csrc/conv3x3x3_wgrad.cu",
+                            "unetsulc_tpu/ops/conv_pallas.py:1090",
+                            "operations", "one 96^3 flagship training step"),
+        "max_pool_buf_bwd": ("unetsulc_tpu_torch/csrc/max_pool_buf_bwd.cu",
+                             "unetsulc_tpu/ops/conv_pallas.py:1695", "bytes",
+                             "one 96^3 flagship training step"),
     }
     line = []
-    for name, (src, replaces, bound_by) in meta.items():
+    for name, (src, replaces, bound_by, cover) in meta.items():
         rs = rows[name]
         err = max(r["max_abs_err"] for r in rs)
         if name == "conv3x3x3_fwd":
             err = max(err, err_a)
+        err = max(err, err_bwd.get(name, 0.0))
         line.append({
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": counts[name],
+            "replaces": replaces,
+            # A and B: the labelling path (phase 5); C, D, E: the training
+            # step (phase 9)
+            "launches": counts[name] if name in counts and counts[name]
+            else train_launches[name],
+            "launches_per_train_step": train_launches[name],
             "max_abs_err": err,
             "ms": sum(r["ms"] for r in rs),
             "plain_ms": sum(r["plain_ms"] for r in rs),
@@ -604,10 +1133,11 @@ def main():
             "bound_by": bound_by,
             "library_ms": sum(r["library_ms"] for r in rs),
             "timed_launches": len(rs),
-            "times_cover": "one 96^3 flagship forward",
+            "times_cover": cover,
         })
     print(f"label latency {label_ms:.1f} ms/graph, forward {fwd_ms:.2f} ms, "
-          f"total script {time.time() - t0:.1f} s", flush=True)
+          f"train step {train['step_ms']:.2f} ms, total script "
+          f"{time.time() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": line}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -172,4 +172,13 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         kernels.conv3x3x3_fwd([buf], [ab], torch.zeros((8, 8, 3, 3, 3)),
                               torch.zeros(8))
-    assert kernels.launch_counts == {"conv3x3x3_fwd": 0, "max_pool_buf_fwd": 0}
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.conv3x3x3_dx(buf, ab, buf, torch.zeros((27, 32, 64)))
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.conv3x3x3_wgrad(buf, ab, buf)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.max_pool_buf_bwd(buf, ab, buf, buf)
+    assert set(kernels.launch_counts) == {
+        "conv3x3x3_fwd", "conv3x3x3_dx", "conv3x3x3_wgrad",
+        "max_pool_buf_fwd", "max_pool_buf_bwd"}
+    assert not any(kernels.launch_counts.values())

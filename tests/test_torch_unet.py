@@ -48,6 +48,7 @@ def _port_model(num_conv, params):
 
 
 @pytest.mark.parametrize("num_conv", [1, 2])
+@torch.no_grad()
 def test_unet_forward_matches_jax_fused(num_conv):
     """Train-mode logits rtol=1e-4, atol=2e-4 (the bar of test_pallas.py's
     Pallas-vs-XLA check); eval probabilities rtol=1e-4, atol=1e-5 against

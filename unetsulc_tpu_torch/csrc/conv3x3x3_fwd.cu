@@ -1,9 +1,13 @@
 // Fused 'crg' conv block forward for Hopper (sm_90a): lazy-GroupNorm
 // prologue -> 3x3x3 conv (implicit GEMM on bf16 tensor cores) -> bias ->
-// ReLU -> per-channel stat sums, over a padded channels-last buffer.
+// ReLU -> per-channel stat sums, over a padded channels-last buffer; and,
+// from the same tile loop, the block's input-gradient (dx) pass.
 //
 // Replaces: unetsulc_tpu/ops/conv_pallas.py `_fwd_kernel` in forward mode
-// (launched by `conv_shards`, reached through `fused_conv_block`).
+// (launched by `conv_shards`, reached through `fused_conv_block`) as
+// `conv3x3x3_fwd` (kernel A), and `_fwd_kernel` in post (dx) mode
+// (`conv_shards(post_ab=..., post_x=...)` from `_fused_bwd`) as
+// `conv3x3x3_dx` (kernel C).
 //
 // Layout. Each input is a padded channels-last buffer (X+2, Y+2, Z+2, C)
 // bf16 whose 1-voxel ring is the conv's zero padding; `ab` is the pending
@@ -25,14 +29,27 @@
 // input's channel rows zero-padded to a multiple of BK and Cout to a
 // multiple of BN, so B tiles load without bounds checks.
 //
+// dx mode (kernel C, template flag DX). The input is the conv's cotangent
+// dconv = 1[y > 0] * (dy + ds0 + 2 y ds1) in bf16, whose ring is exactly
+// 0, read without an affine; the weights are one branch's mirrored and
+// transposed taps, Wt[tap][co][ci] = W[ci][co][26 - tap] (packed by the
+// wrapper in the same layout), so the tile loop computes the transposed
+// conv dxn = conv^T(dconv, W) for that branch's Cin channels. No bias and
+// no ReLU. The epilogue takes the f32 dxn of each interior voxel and adds
+// sum(post_x * dxn) and sum(dxn) per channel into `sums` (post_x: the
+// branch's raw bf16 forward input), then writes bf16(dxn * a) (a: row 0
+// of the branch's forward affine): the gradients of x and of its affine,
+// as conv_pallas.py:519-545 does.
+//
 // What bounds it on this card: operations. At the flagship 96^3 shapes a
 // launch does 2 * voxels * 27 * Cin * Cout FLOP (0.59 TFLOP for decoder
 // 2's 192->64 pair conv) against ~0.3 GB of traffic, far above the
 // ~295 FLOP/byte ridge of the H100, so the floor is the bf16 tensor-core
-// rate. This first version is the simple one: nvcuda::wmma 16x16x16 bf16
+// rate; the dx pass does the same FLOP as its branch's forward. This
+// first version is the simple one: nvcuda::wmma 16x16x16 bf16
 // fragments fed from shared memory, one K step per __syncthreads pair, no
 // cp.async/TMA pipeline and no wgmma; it reaches a fraction of that rate
-// (PERF.md). The stat sums reduce over the block's rows in shared memory
+// (PERF.md). The sums reduce over the block's rows in shared memory
 // and take one atomicAdd per channel per block, so their summation order
 // varies from run to run.
 
@@ -72,12 +89,17 @@ __device__ __forceinline__ __nv_bfloat16 norm_bf16(__nv_bfloat16 v, float a,
   return __float2bfloat16(__fadd_rn(__fmul_rn(__bfloat162float(v), a), b));
 }
 
+// DX = false: kernel A (bias, ReLU, stat sums). DX = true: kernel C
+// (`bias` unused; `post_a`, `post_x` give the cross-stats and the scale).
+template <bool DX>
 __global__ void __launch_bounds__(THREADS)
-    conv3x3x3_fwd_kernel(Input in0, Input in1, int n_inputs,
-                         const __nv_bfloat16* __restrict__ w, int ktot,
-                         int npad, const float* __restrict__ bias, int cout,
-                         int X, int Y, int Z, __nv_bfloat16* __restrict__ y,
-                         float* __restrict__ sums) {
+    conv3x3x3_kernel(Input in0, Input in1, int n_inputs,
+                     const __nv_bfloat16* __restrict__ w, int ktot, int npad,
+                     const float* __restrict__ bias,
+                     const float* __restrict__ post_a,
+                     const __nv_bfloat16* __restrict__ post_x, int cout,
+                     int X, int Y, int Z, __nv_bfloat16* __restrict__ y,
+                     float* __restrict__ sums) {
   __shared__ __align__(128) unsigned char smem[SMEM_BYTES];
   __nv_bfloat16* sA = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* sB = sA + BM * LDA;
@@ -123,7 +145,7 @@ __global__ void __launch_bounds__(THREADS)
       float a[16], b[16];
 #pragma unroll
       for (int j = 0; j < 16; ++j) {
-        const bool ok = cb + j < in.c;
+        const bool ok = !DX && cb + j < in.c;
         a[j] = ok ? in.ab[cb + j] : 0.0f;
         b[j] = ok ? in.ab[in.c + cb + j] : 0.0f;
       }
@@ -148,13 +170,16 @@ __global__ void __launch_bounds__(THREADS)
                   reinterpret_cast<const __nv_bfloat16*>(&u);
 #pragma unroll
               for (int j = 0; j < 8; ++j)
-                vals[g * 8 + j] = norm_bf16(h[j], a[g * 8 + j], b[g * 8 + j]);
+                vals[g * 8 + j] =
+                    DX ? h[j] : norm_bf16(h[j], a[g * 8 + j], b[g * 8 + j]);
             } else {
 #pragma unroll
               for (int j = 0; j < 8; ++j)
                 if (cg + j < in.c)
                   vals[g * 8 + j] =
-                      norm_bf16(src[g * 8 + j], a[g * 8 + j], b[g * 8 + j]);
+                      DX ? src[g * 8 + j]
+                         : norm_bf16(src[g * 8 + j], a[g * 8 + j],
+                                     b[g * 8 + j]);
             }
           }
         }
@@ -204,13 +229,13 @@ __global__ void __launch_bounds__(THREADS)
                               acc[i][j], LDC, wmma::mem_row_major);
   __syncthreads();
 
-  // bias + ReLU; rows past the volume and columns past Cout become 0 so
-  // they add nothing to the sums
+  // bias + ReLU (kernel A) or the raw dxn (kernel C); rows past the
+  // volume and columns past Cout become 0 so they add nothing to the sums
   for (int idx = tid; idx < BM * BN; idx += THREADS) {
     const int r = idx / BN, n = idx % BN;
     float v = 0.0f;
     if (m0 + r < M && n0 + n < cout)
-      v = fmaxf(sC[r * LDC + n] + bias[n0 + n], 0.0f);
+      v = DX ? sC[r * LDC + n] : fmaxf(sC[r * LDC + n] + bias[n0 + n], 0.0f);
     sC[r * LDC + n] = v;
   }
   __syncthreads();
@@ -219,8 +244,21 @@ __global__ void __launch_bounds__(THREADS)
     float s0 = 0.0f, s1 = 0.0f;
     for (int r = 0; r < BM; ++r) {
       const float v = sC[r * LDC + tid];
-      s0 += v;
-      s1 += v * v;
+      if (DX) {
+        const long long m = m0 + r;
+        if (m >= M) break;
+        const int oz = (int)(m % Z);
+        const long long t = m / Z;
+        const int oy = (int)(t % Y), ox = (int)(t / Y);
+        const float px = __bfloat162float(
+            post_x[((long long)((ox + 1) * Yp + oy + 1) * Zp + oz + 1) * cout +
+                   n0 + tid]);
+        s0 += v * px;
+        s1 += v;
+      } else {
+        s0 += v;
+        s1 += v * v;
+      }
     }
     atomicAdd(sums + n0 + tid, s0);
     atomicAdd(sums + cout + n0 + tid, s1);
@@ -242,11 +280,12 @@ __global__ void __launch_bounds__(THREADS)
     if (vec_out && n + 8 <= cout) {
       __align__(16) __nv_bfloat16 o[8];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) o[j] = __float2bfloat16(s[j]);
+      for (int j = 0; j < 8; ++j)
+        o[j] = __float2bfloat16(DX ? s[j] * post_a[n + j] : s[j]);
       *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(o);
     } else {
       for (int j = 0; j < 8 && n + j < cout; ++j)
-        dst[j] = __float2bfloat16(s[j]);
+        dst[j] = __float2bfloat16(DX ? s[j] * post_a[n + j] : s[j]);
     }
   }
 }
@@ -266,9 +305,31 @@ extern "C" int conv3x3x3_fwd(const void* x1, const float* ab1, int c1,
   const int ktot = in0.cpad + (n_inputs > 1 ? in1.cpad : 0);
   const long long M = (long long)X * Y * Z;
   const dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)(npad / BN));
-  conv3x3x3_fwd_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      in0, in1, n_inputs, static_cast<const __nv_bfloat16*>(w), ktot, npad,
-      bias, cout, X, Y, Z, static_cast<__nv_bfloat16*>(y), sums);
+  conv3x3x3_kernel<false>
+      <<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+          in0, in1, n_inputs, static_cast<const __nv_bfloat16*>(w), ktot,
+          npad, bias, nullptr, nullptr, cout, X, Y, Z,
+          static_cast<__nv_bfloat16*>(y), sums);
+  return (int)cudaGetLastError();
+}
+
+// Kernel C: dconv (X+2, Y+2, Z+2, c) bf16 -> dx (X+2, Y+2, Z+2, cout) bf16
+// = bf16(conv^T(dconv, W_branch) * post_a), sums (2, cout) f32 =
+// (sum post_x * dxn, sum dxn). w: the branch's mirrored, transposed
+// weights packed as (27, round_up(c, BK), npad) bf16.
+extern "C" int conv3x3x3_dx(const void* dconv, int c, const void* w,
+                            int npad, const float* post_a, const void* post_x,
+                            int cout, int X, int Y, int Z, void* dx,
+                            float* sums, void* stream) {
+  Input in0{static_cast<const __nv_bfloat16*>(dconv), nullptr, c,
+            (c + BK - 1) / BK * BK, 0};
+  const long long M = (long long)X * Y * Z;
+  const dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)(npad / BN));
+  conv3x3x3_kernel<true>
+      <<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+          in0, in0, 1, static_cast<const __nv_bfloat16*>(w), in0.cpad, npad,
+          nullptr, post_a, static_cast<const __nv_bfloat16*>(post_x), cout, X,
+          Y, Z, static_cast<__nv_bfloat16*>(dx), sums);
   return (int)cudaGetLastError();
 }
 

@@ -1,6 +1,9 @@
 """The port's hand-written CUDA kernels: build, binding, launch wrappers.
 
-Each source in ``unetsulc_tpu_torch/csrc/`` has a plain C interface. At
+Five kernels in four sources: A ``conv3x3x3_fwd`` and C ``conv3x3x3_dx``
+(one template, ``conv3x3x3_fwd.cu``), D ``conv3x3x3_wgrad``, B
+``max_pool_buf_fwd`` and E ``max_pool_buf_bwd``. Each source in
+``unetsulc_tpu_torch/csrc/`` has a plain C interface. At
 first use, every source whose library is missing is compiled by its own
 ``nvcc`` process (all started together) for ``sm_90a`` into
 ``build/kernels/lib<name>-<hash>.so`` beside the package, keyed by a hash
@@ -31,34 +34,49 @@ import torch.nn.functional as F
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+# library name -> source; each library is one nvcc build
 SOURCES = {
     "conv3x3x3_fwd": "conv3x3x3_fwd.cu",
+    "conv3x3x3_wgrad": "conv3x3x3_wgrad.cu",
     "max_pool_buf_fwd": "max_pool_buf_fwd.cu",
+    "max_pool_buf_bwd": "max_pool_buf_bwd.cu",
 }
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 )
 
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# kernel (C entry point) -> (library, argtypes)
+KERNELS = {
+    # kernel A. x1, ab1, c1, x2, ab2, c2, n_inputs, w, npad, bias, cout,
+    # X, Y, Z, y, sums, stream
+    "conv3x3x3_fwd": ("conv3x3x3_fwd", [_P, _P, _I, _P, _P, _I, _I, _P, _I,
+                                        _P, _I, _I, _I, _I, _P, _P, _P]),
+    # kernel C. dconv, c, w, npad, post_a, post_x, cout, X, Y, Z, dx, sums,
+    # stream
+    "conv3x3x3_dx": ("conv3x3x3_fwd", [_P, _I, _P, _I, _P, _P, _I, _I, _I,
+                                       _I, _P, _P, _P]),
+    # kernel D. x, ab, cin, dconv, cout, X, Y, Z, dw, stream
+    "conv3x3x3_wgrad": ("conv3x3x3_wgrad", [_P, _P, _I, _P, _I, _I, _I, _I,
+                                            _P, _P]),
+    # kernel B. x, ab, c, X, Y, Z, y, stream
+    "max_pool_buf_fwd": ("max_pool_buf_fwd", [_P, _P, _I, _I, _I, _I, _P,
+                                              _P]),
+    # kernel E. x, ab, out, cot, c, X, Y, Z, dx, dab, stream
+    "max_pool_buf_bwd": ("max_pool_buf_bwd", [_P, _P, _P, _P, _I, _I, _I,
+                                              _I, _P, _P, _P]),
+}
+
 # launches of each kernel since the last reset_launch_counts(): each
 # wrapper adds one where it launches its kernel, and nowhere else
-launch_counts: Dict[str, int] = {name: 0 for name in SOURCES}
+launch_counts: Dict[str, int] = {name: 0 for name in KERNELS}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 # kernel A's (K, N) tile widths, read from its library when it is loaded
 _conv_tiles: list = []
 _lock = threading.Lock()
-
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_ARGTYPES = {
-    # x1, ab1, c1, x2, ab2, c2, n_inputs, w, npad, bias, cout, X, Y, Z,
-    # y, sums, stream
-    "conv3x3x3_fwd": [_P, _P, _I, _P, _P, _I, _I, _P, _I, _P, _I, _I, _I,
-                      _I, _P, _P, _P],
-    # x, ab, c, X, Y, Z, y, stream
-    "max_pool_buf_fwd": [_P, _P, _I, _I, _I, _I, _P, _P],
-}
 
 
 def reset_launch_counts() -> None:
@@ -123,13 +141,17 @@ def build(ptxas_verbose: bool = False) -> Dict[str, str]:
 
 
 def _lib(name: str) -> ctypes.CDLL:
+    """Library ``name``, built and loaded at its first use, with the
+    argument types of each of its kernels set."""
     lib = _libs.get(name)
     if lib is None:
         build()
         lib = ctypes.CDLL(str(library_paths()[name]))
-        fn = getattr(lib, name)
-        fn.argtypes = _ARGTYPES[name]
-        fn.restype = ctypes.c_int
+        for kernel, (libname, argtypes) in KERNELS.items():
+            if libname == name:
+                fn = getattr(lib, kernel)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
         if name == "conv3x3x3_fwd":
             tiles = []
             for tile in ("conv3x3x3_fwd_tile_k", "conv3x3x3_fwd_tile_n"):
@@ -139,6 +161,11 @@ def _lib(name: str) -> ctypes.CDLL:
             _conv_tiles[:] = tiles
         _libs[name] = lib
     return lib
+
+
+def _kernel(name: str):
+    """The C entry point of kernel ``name``."""
+    return getattr(_lib(KERNELS[name][0]), name)
 
 
 def _check_buffer(t: torch.Tensor, what: str) -> None:
@@ -204,6 +231,27 @@ def pack_conv_weights(weight: torch.Tensor, cins: Sequence[int]) -> torch.Tensor
     return torch.cat(blocks, 1).contiguous()
 
 
+def mirror_transpose(weight: torch.Tensor, cins: Sequence[int],
+                     branch: int) -> torch.Tensor:
+    """One input branch's weights as the transposed conv reads them:
+    (Cout, sum(cins), 3, 3, 3) -> (cins[branch], Cout, 3, 3, 3) with the
+    taps mirrored, Wt[ci][co][tap] = W[co][ci][26 - tap] — the counterpart
+    of ``mirror_transpose_shards`` (conv_pallas.py:198). A forward conv with
+    Wt is the transposed conv with W: the dx pass of that branch."""
+    c0 = sum(int(c) for c in cins[:branch])
+    wb = weight[:, c0:c0 + int(cins[branch])]
+    return wb.transpose(0, 1).flip(2, 3, 4)
+
+
+def pack_conv_weights_dx(weight: torch.Tensor, cins: Sequence[int],
+                         branch: int) -> torch.Tensor:
+    """Branch ``branch``'s mirrored, transposed weights packed as kernel C
+    reads them: (27, round_up(Cout, K tile), round_up(cins[branch], N
+    tile)) bf16, the layout of :func:`pack_conv_weights`."""
+    cout = int(weight.shape[0])
+    return pack_conv_weights(mirror_transpose(weight, cins, branch), [cout])
+
+
 def conv3x3x3_fwd(
     xs: Sequence[torch.Tensor],
     abs_: Sequence[torch.Tensor],
@@ -247,9 +295,9 @@ def conv3x3x3_fwd(
     y = torch.zeros((xp, yp, zp, cout), dtype=torch.bfloat16, device=x1.device)
     sums = torch.zeros((2, cout), dtype=torch.float32, device=x1.device)
     x2, ab2 = (xs[1], abs_[1]) if len(xs) == 2 else (x1, abs_[0])
-    lib = _lib("conv3x3x3_fwd")
+    fn = _kernel("conv3x3x3_fwd")
     with torch.cuda.device(x1.device):
-        err = lib.conv3x3x3_fwd(
+        err = fn(
             x1.data_ptr(), abs_[0].data_ptr(), cins[0],
             x2.data_ptr(), ab2.data_ptr(), int(x2.shape[3]), len(xs),
             w.data_ptr(), int(w.shape[2]), bias.data_ptr(), cout,
@@ -274,12 +322,122 @@ def max_pool_buf_fwd(buf: torch.Tensor, ab: Optional[torch.Tensor]) -> torch.Ten
         (x // 2 + 3, y // 2 + 3, z // 2 + 3, c), dtype=buf.dtype,
         device=buf.device,
     )
-    lib = _lib("max_pool_buf_fwd")
+    fn = _kernel("max_pool_buf_fwd")
     with torch.cuda.device(buf.device):
-        err = lib.max_pool_buf_fwd(
+        err = fn(
             buf.data_ptr(), None if ab is None else ab.data_ptr(), c, x, y, z,
             out.data_ptr(), torch.cuda.current_stream(buf.device).cuda_stream,
         )
     _raise_on(err, "max_pool_buf_fwd")
     launch_counts["max_pool_buf_fwd"] += 1
     return out
+
+
+def conv3x3x3_dx(
+    dconv: torch.Tensor,
+    post_ab: torch.Tensor,
+    post_x: torch.Tensor,
+    packed: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel C: one input branch's gradients through the fused conv block.
+
+    dconv: (Xp, Yp, Zp, Cout) bf16, the conv's cotangent, exactly 0 on the
+    ring; post_ab: the branch's (2, Cin) f32 forward affine; post_x: its
+    (Xp, Yp, Zp, Cin) bf16 forward input; packed:
+    ``pack_conv_weights_dx(weight, cins, branch)``. Returns (dx (Xp, Yp,
+    Zp, Cin) bf16 = bf16(dxn * a) with a zero ring, sums (2, Cin) f32 =
+    (sum post_x * dxn, sum dxn) over the interior), where dxn is the
+    transposed conv of dconv with the branch's weights."""
+    _check_buffer(dconv, "dconv")
+    _check_buffer(post_x, "post_x")
+    if post_x.shape[:3] != dconv.shape[:3] or post_x.device != dconv.device:
+        raise ValueError("dconv and post_x differ in geometry or device")
+    c, cin = int(dconv.shape[3]), int(post_x.shape[3])
+    _check_affine(post_ab, cin, dconv.device, "post affine")
+    shape = packed_weight_shape([c], cin)
+    if (packed.device != dconv.device or packed.dtype != torch.bfloat16
+            or tuple(packed.shape) != shape or not packed.is_contiguous()):
+        raise ValueError(f"packed dx weight must be a contiguous bfloat16 "
+                         f"{shape} tensor on {dconv.device}")
+    xp, yp, zp = (int(v) for v in dconv.shape[:3])
+    dx = torch.zeros((xp, yp, zp, cin), dtype=torch.bfloat16,
+                     device=dconv.device)
+    sums = torch.zeros((2, cin), dtype=torch.float32, device=dconv.device)
+    fn = _kernel("conv3x3x3_dx")
+    with torch.cuda.device(dconv.device):
+        err = fn(
+            dconv.data_ptr(), c, packed.data_ptr(), int(packed.shape[2]),
+            post_ab.data_ptr(), post_x.data_ptr(), cin, xp - 2, yp - 2,
+            zp - 2, dx.data_ptr(), sums.data_ptr(),
+            torch.cuda.current_stream(dconv.device).cuda_stream,
+        )
+    _raise_on(err, "conv3x3x3_dx")
+    launch_counts["conv3x3x3_dx"] += 1
+    return dx, sums
+
+
+def conv3x3x3_wgrad(x: torch.Tensor, ab: torch.Tensor,
+                    dconv: torch.Tensor) -> torch.Tensor:
+    """Kernel D: one input branch's weight gradient, (27, Cin, Cout) f32,
+    dW[tap] = sum over the interior of xn[v + off(tap)]^T dconv[v], with
+    xn = mask * bf16(f32(x) * a + b) recomputed from the (Xp, Yp, Zp, Cin)
+    bf16 buffer x and its (2, Cin) f32 affine ab; dconv: (Xp, Yp, Zp, Cout)
+    bf16, exactly 0 on the ring. Split-K partials meet by atomicAdd, so the
+    f32 result's last bits vary between runs."""
+    _check_buffer(x, "wgrad input")
+    _check_buffer(dconv, "dconv")
+    if x.shape[:3] != dconv.shape[:3] or x.device != dconv.device:
+        raise ValueError("wgrad input and dconv differ in geometry or device")
+    cin, cout = int(x.shape[3]), int(dconv.shape[3])
+    _check_affine(ab, cin, x.device, "wgrad affine")
+    xp, yp, zp = (int(v) for v in x.shape[:3])
+    dw = torch.zeros((27, cin, cout), dtype=torch.float32, device=x.device)
+    fn = _kernel("conv3x3x3_wgrad")
+    with torch.cuda.device(x.device):
+        err = fn(
+            x.data_ptr(), ab.data_ptr(), cin, dconv.data_ptr(), cout,
+            xp - 2, yp - 2, zp - 2, dw.data_ptr(),
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    _raise_on(err, "conv3x3x3_wgrad")
+    launch_counts["conv3x3x3_wgrad"] += 1
+    return dw
+
+
+def max_pool_buf_bwd(
+    buf: torch.Tensor,
+    ab: Optional[torch.Tensor],
+    out: torch.Tensor,
+    cot: torch.Tensor,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Kernel E: the backward of :func:`max_pool_buf_fwd`. buf, ab: the
+    forward's input buffer and affine (or None); out: its output; cot:
+    out's cotangent (bf16, out's shape). Returns (dbuf, buf's shape, bf16:
+    each pooled cotangent at the first window position equal to the max,
+    times a; dab (2, C) f32 = (sum x * d, sum d), or None without an
+    affine)."""
+    _check_buffer(buf, "pool input")
+    c = int(buf.shape[3])
+    x, y, z = (int(v) - 2 for v in buf.shape[:3])
+    pooled = (x // 2 + 3, y // 2 + 3, z // 2 + 3, c)
+    for t, what in ((out, "pool output"), (cot, "pool cotangent")):
+        _check_buffer(t, what)
+        if tuple(t.shape) != pooled or t.device != buf.device:
+            raise ValueError(f"{what} must be {pooled} on {buf.device}, got "
+                             f"{tuple(t.shape)} on {t.device}")
+    if ab is not None:
+        _check_affine(ab, c, buf.device, "pool affine")
+    dbuf = torch.zeros_like(buf)
+    dab = None if ab is None else torch.zeros(
+        (2, c), dtype=torch.float32, device=buf.device)
+    fn = _kernel("max_pool_buf_bwd")
+    with torch.cuda.device(buf.device):
+        err = fn(
+            buf.data_ptr(), None if ab is None else ab.data_ptr(),
+            out.data_ptr(), cot.data_ptr(), c, x, y, z, dbuf.data_ptr(),
+            None if dab is None else dab.data_ptr(),
+            torch.cuda.current_stream(buf.device).cuda_stream,
+        )
+    _raise_on(err, "max_pool_buf_bwd")
+    launch_counts["max_pool_buf_bwd"] += 1
+    return dbuf, dab

@@ -64,7 +64,7 @@ def state_dict_from_jax_params(params: dict) -> Dict[str, torch.Tensor]:
         key, is_kernel = _torch_key(path)
         if is_kernel:  # (kX, kY, kZ, I, O) -> (O, I, kX, kY, kZ)
             arr = np.transpose(arr, (4, 3, 0, 1, 2))
-        out[key] = torch.from_numpy(np.ascontiguousarray(arr, dtype=np.float32))
+        out[key] = torch.from_numpy(np.array(arr, dtype=np.float32, order="C"))
     return out
 
 

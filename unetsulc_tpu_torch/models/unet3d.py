@@ -1,4 +1,4 @@
-"""The flagship 3D U-Net on the fused 'crg' pipeline, forward only.
+"""The flagship 3D U-Net on the fused 'crg' pipeline, differentiable.
 
 Counterpart of the fused-pipeline forward of
 ``UNet3D`` in ``unetsulc_tpu/models/unet3d.py`` (``pallas_blocks=True``):
@@ -8,8 +8,9 @@ Counterpart of the fused-pipeline forward of
   27-tap matmul, every other conv one launch of kernel A
   (:func:`~unetsulc_tpu_torch.ops.conv_fused.fused_conv_block`) that
   applies the previous GroupNorm lazily and returns the stat sums of the
-  next one;
-* MaxPool3d(2, 2, padding 1) on the buffer between encoders (kernel B);
+  next one; its backward launches kernels C (dx) and D (dW) per input;
+* MaxPool3d(2, 2, padding 1) on the buffer between encoders (kernel B;
+  backward kernel E);
 * three decoders that resize the raw buffer trilinearly to the skip's
   size, keep its GroupNorm pending, and feed skip and upsampled tensor to
   ONE launch of kernel A as two inputs (no concat);
@@ -40,7 +41,8 @@ from unetsulc_tpu_torch.ops import conv_fused as cf
 from unetsulc_tpu_torch.ops.resize import resize_trilinear_buf
 
 _NON_FUSED = "the non-fused path (ROADMAP.md §1, 'Non-fused ops')"
-_BATCHED = "batch > 1 (ROADMAP.md §1, 'Rest of train/step.py')"
+_BATCHED = ("batch > 1 in one forward (train/step.py runs a batch one "
+            "volume at a time)")
 
 
 def pick_num_groups(channels: int, preferred: int = 32) -> int:
@@ -99,8 +101,7 @@ class DoubleConv(nn.Module):
             g = vols[0].g
             buf, sums = cf.fused_conv_block(
                 [v.buf for v in vols], [v.aff for v in vols], conv.weight,
-                conv.bias, g,
-                packed=packed.get(conv.weight, [v.channels for v in vols]),
+                conv.bias, g, packed=packed,
             )
         aff = cf.gn_affine_from_sums(
             sums, norm.weight, norm.bias, norm.num_groups, g.voxels
@@ -148,7 +149,12 @@ class UNet3D(nn.Module):
     Parameters are initialized from ``seed`` with torch Conv3d's default
     distributions (kaiming-uniform weights, uniform biases; GroupNorm 1/0),
     drawn on the CPU so a seed gives the same weights on every device.
-    Forward only: gradients come with the training slice's kernels."""
+
+    The forward records autograd's graph when a parameter needs a
+    gradient: the fused ops' backwards are the kernels of
+    :mod:`~unetsulc_tpu_torch.ops.conv_fused`, the entry conv, the resizes,
+    the GroupNorm affines and the head take PyTorch's own autograd.
+    Inference callers run it under ``torch.no_grad()``."""
 
     def __init__(
         self,
@@ -233,7 +239,6 @@ class UNet3D(nn.Module):
             return list(self.final_conv)
         return [self.final_conv]
 
-    @torch.no_grad()
     def forward(
         self,
         x: torch.Tensor,

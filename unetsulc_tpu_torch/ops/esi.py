@@ -1,6 +1,8 @@
-"""ESI (Error Similarity Index) — the reference's accuracy metric, host side.
+"""ESI (Error Similarity Index) — the reference's accuracy metric.
 
-Copy of the host functions of ``unetsulc_tpu/ops/esi.py``:
+Copy of ``unetsulc_tpu/ops/esi.py``: the on-device (TP, FP, FN) counts of
+the train and eval steps (:func:`confusion_counts`) and the host
+functions:
 
     esi_score(y_true, y_pred, labels)
       = mean over ``labels`` of  E_local(s) = (FP_s + FN_s) / (2*TP_s + FP_s + FN_s)
@@ -15,6 +17,35 @@ from __future__ import annotations
 from typing import Sequence
 
 import numpy as np
+import torch
+
+
+def confusion_counts(
+    y_true: torch.Tensor,
+    y_pred: torch.Tensor,
+    num_classes: int,
+    background: int = -1,
+) -> torch.Tensor:
+    """(3, num_classes) int32 [TP, FP, FN] counts on the tensors' device,
+    voxels with ``y_true == background`` excluded (ref training.py:216-217).
+
+    y_true, y_pred: integer tensors of one shape. Per-class counts are
+    weighted ``index_add_`` sums, so nothing waits for the host (a boolean
+    index or ``bincount`` would)."""
+    t = y_true.reshape(-1).long()
+    p = y_pred.reshape(-1).long()
+    valid = (t != background).float()
+    match = valid * (t == p).float()
+
+    def count(idx, w):
+        # f32 counts are exact below 2^24 voxels
+        z = torch.zeros(num_classes, dtype=torch.float32, device=t.device)
+        return z.index_add_(0, idx.clamp(0, num_classes - 1), w)
+
+    t_counts = count(t, valid)
+    p_counts = count(p, valid)
+    tp = count(t, match)
+    return torch.stack([tp, p_counts - tp, t_counts - tp]).to(torch.int32)
 
 
 def esi_from_counts(counts: np.ndarray, label_ids: Sequence[int]) -> float:

@@ -1,25 +1,190 @@
-"""Labelling forward and cutting vote (the labelling part of
-``unetsulc_tpu/train/step.py``: ``make_label_fn`` and ``make_vote_fn``).
+"""Train, eval and labelling steps (``unetsulc_tpu/train/step.py``):
+SGD with momentum on masked cross-entropy, on-device confusion counts,
+the labelling forward and the cutting vote.
 
-Training steps come with the training slice (ROADMAP.md §1).
+torch SGD parity (ref training.py:140, ``optim.SGD(lr, momentum, wd=0)``):
+
+    buf   <- momentum * buf + grad
+    param <- param - lr * buf
+
+with the model's f32 parameters as the master weights. The reference
+rebuilds its optimizer on DivideLr, which resets the momentum buffers
+(ref training.py:252): :meth:`TrainState.divide_lr`.
+
+A batch of more than one volume runs as one batch-1 forward and backward
+per volume (the JAX package's ``scan_batch=True``), each volume's loss
+being its NLL sum over the batch's total valid count, which the labels
+give before any forward: the gradients accumulate to the exact batch
+mean, and only one volume's activations live at a time.
+
+Eval parity quirk: the torch model applies its final activation in eval
+mode, so the reference's validation loss is CE(softmax(logits)) while the
+train loss is CE(logits); :func:`make_eval_step` reproduces it.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
+
+from unetsulc_tpu_torch.ops.esi import confusion_counts
+from unetsulc_tpu_torch.ops.losses import cross_entropy_sum
+from unetsulc_tpu_torch.train import freeze
+
+
+def _match_labels(logits: torch.Tensor, labels: torch.Tensor,
+                  background: int) -> torch.Tensor:
+    """Labels in the logits' layout. The fused pipeline's padded logits
+    (X+2, Y+2, Z+2, C) take labels (1, X, Y, Z) ring-padded with
+    ``background``, so the ring drops out of the loss and the counts;
+    5-D logits take the labels as they are."""
+    if logits.dim() != 4:
+        return labels
+    if labels.shape[0] != 1:
+        raise ValueError(f"padded logits need batch 1, got {labels.shape[0]}")
+    if tuple(logits.shape[:3]) != tuple(int(s) + 2 for s in labels.shape[1:]):
+        raise ValueError(f"labels {tuple(labels.shape)} do not match padded "
+                         f"logits {tuple(logits.shape)}")
+    return F.pad(labels[0], (1, 1, 1, 1, 1, 1), value=background)
+
+
+def _sgd(params, lr: float, momentum: float) -> torch.optim.SGD:
+    return torch.optim.SGD(params, lr=lr, momentum=momentum, dampening=0,
+                           nesterov=False, weight_decay=0)
+
+
+class TrainState:
+    """The model (its parameters are the master weights, updated in place),
+    its trainable set, and the SGD optimizer that holds the lr and the
+    momentum buffers. The momentum rate is the train step's, as in the JAX
+    package; a buffer that does not exist yet counts as zero."""
+
+    def __init__(self, model: torch.nn.Module, lr: float,
+                 training_layers: Optional[Sequence[str]] = None):
+        self.model = model
+        self.training_layers = training_layers
+        self.optimizer = _sgd(
+            freeze.apply_training_layers(model, training_layers), lr, 0.9)
+        self.step = 0
+
+    @classmethod
+    def create(cls, model: torch.nn.Module, lr: float,
+               training_layers: Optional[Sequence[str]] = None) -> "TrainState":
+        return cls(model, lr, training_layers)
+
+    @property
+    def lr(self) -> float:
+        return self.optimizer.param_groups[0]["lr"]
+
+    def divide_lr(self, factor: float = 10.0,
+                  reset_momentum: bool = True) -> "TrainState":
+        """DivideLr (ref training.py:250-252): lr /= factor and, by default,
+        momentum reset, as the reference's optimizer rebuild does."""
+        for group in self.optimizer.param_groups:
+            group["lr"] /= factor
+        if reset_momentum:
+            self.reset_momentum()
+        return self
+
+    def reset_momentum(self) -> "TrainState":
+        self.optimizer.state.clear()
+        return self
+
+    def repartition(self, training_layers: Optional[Sequence[str]]) -> "TrainState":
+        """Change the trainable set (the fine-tuning unfreeze); every
+        momentum buffer restarts at zero, as the reference's optimizer
+        rebuild does (ref transfer_learning/transfer_learning.py:392)."""
+        group = self.optimizer.param_groups[0]
+        self.training_layers = training_layers
+        self.optimizer = _sgd(
+            freeze.apply_training_layers(self.model, training_layers),
+            group["lr"], group["momentum"])
+        return self
+
+
+def make_train_step(model: torch.nn.Module, num_classes: int,
+                    momentum: float = 0.9, background: int = -1) -> Callable:
+    """``step(state, inputs (N, X, Y, Z, Cin), labels (N, X, Y, Z)) ->
+    (loss, counts (3, num_classes) int32)``, both on the device; the host
+    never waits inside. Forward (train mode, padded logits), masked
+    cross-entropy, backward through the fused ops' kernels for the
+    trainable parameters only, then one SGD-with-momentum update of
+    ``state``'s parameters in place."""
+
+    def step(state: TrainState, inputs: torch.Tensor,
+             labels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        if state.model is not model:
+            raise ValueError("state belongs to another model")
+        opt = state.optimizer
+        for group in opt.param_groups:
+            group["momentum"] = momentum
+        opt.zero_grad(set_to_none=True)
+        denom = (labels != background).sum().clamp_min(1).float()
+        loss = torch.zeros((), dtype=torch.float32, device=inputs.device)
+        counts = torch.zeros((3, num_classes), dtype=torch.int32,
+                             device=inputs.device)
+        for i in range(inputs.shape[0]):
+            logits = model(inputs[i:i + 1], train=True, padded_output=True)
+            lbl = _match_labels(logits, labels[i:i + 1], background)
+            nll, _ = cross_entropy_sum(logits, lbl, background)
+            part = nll / denom
+            if part.requires_grad:
+                part.backward()
+            loss = loss + part.detach()
+            counts = counts + confusion_counts(
+                lbl, logits.detach().argmax(-1), num_classes, background)
+        opt.step()
+        state.step += 1
+        return loss, counts
+
+    return step
+
+
+def make_eval_step(model: torch.nn.Module, num_classes: int,
+                   background: int = -1, apply_activation: bool = True,
+                   final_sigmoid: bool = False) -> Callable:
+    """``step(inputs, labels) -> (loss, counts)`` in eval mode, one volume
+    at a time: argmax and counts on the raw logits; with
+    ``apply_activation`` the loss is the cross-entropy of the activated
+    outputs (sigmoid or softmax per ``final_sigmoid``), the reference's
+    eval-mode quirk (train/step.py:259-300 of the JAX package)."""
+
+    @torch.no_grad()
+    def step(inputs: torch.Tensor,
+             labels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        nll = torch.zeros((), dtype=torch.float32, device=inputs.device)
+        cnt = torch.zeros((), dtype=torch.int64, device=inputs.device)
+        counts = torch.zeros((3, num_classes), dtype=torch.int32,
+                             device=inputs.device)
+        for i in range(inputs.shape[0]):
+            logits = model(inputs[i:i + 1], train=False,
+                           apply_final_activation=False, padded_output=True)
+            lbl = _match_labels(logits, labels[i:i + 1], background)
+            counts = counts + confusion_counts(lbl, logits.argmax(-1),
+                                               num_classes, background)
+            if apply_activation:
+                logits = (torch.sigmoid(logits) if final_sigmoid
+                          else torch.softmax(logits, -1))
+            n, c = cross_entropy_sum(logits, lbl, background)
+            nll, cnt = nll + n, cnt + c
+        return nll / cnt.clamp_min(1), counts
+
+    return step
 
 
 def make_label_fn(model, final_sigmoid: bool = False) -> Callable:
     """``label(inputs (1, X, Y, Z, C), coords (3, n) long) -> (ypred (n,),
-    yscores (n, classes) f32)`` at the given voxels only.
+    yscores (n, classes) f32)`` at the given voxels only, without
+    autograd.
 
     Gathers the padded logits at the voxel coordinates FIRST, then applies
     softmax/sigmoid and argmax: the activation acts per voxel over
     channels, so gather-then-activate equals activate-then-gather, and only
     (n x classes) values are ever activated or fetched. Scores stay f32."""
 
+    @torch.no_grad()
     def label(inputs: torch.Tensor, coords: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         logits = model(inputs, train=False, apply_final_activation=False,
                        padded_output=True)  # (X+2, Y+2, Z+2, classes)
