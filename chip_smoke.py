@@ -58,7 +58,27 @@ order (each phase aborts the script with a non-zero exit on failure):
    and times it as phase 6 does, against one library call
    (``aten.convolution_backward`` in bf16, channels-last, for C and D;
    ``max_pool3d_with_indices_backward`` for E) and its bound;
-11. prints the kernels' JSON line, the card line, and the final JSON line.
+12. holds the four GroupNorm kernels (``gn_stats``, ``gn_apply``,
+   ``gn_bwd_reduce``, ``gn_bwd_dx``) against their plain versions at the 14
+   GroupNorms of the flagship non-fused forward (bf16, G 32), one in f32
+   and one with N 2, odd extents and 36 channels: mean and inv rtol 1e-4,
+   apply within 1 bf16 ulp, reduce rtol 1e-3 with atol 1e-3 max|p|, dx as
+   kernel C; and gn_stats bit-identical in two runs;
+13. drives labelling on the non-fused path end to end: a random flagship
+   model with the transposed-conv decoder (``interpolate=False``) saved as
+   ``.mdsm``, ``label.main`` on phase 5's graphs with the launch counts
+   zeroed (gn_stats and gn_apply 14 per graph, no launch of kernels A-E),
+   label latency, the forward against the same forward with the plain
+   GroupNorm (phase 5's bars), forward time, and a profile;
+14. trains that model on phase 9's batch: the step against the plain step
+   at phase 9's bars, launches per step (each GroupNorm kernel 14), 3
+   warm-up and 20 timed steps, a falling loss, peak memory, a profile of
+   one step, and one step with dropout 0.1 at batch 2;
+15. holds every GroupNorm launch of one non-fused training step (recorded
+   inputs) against its plain version and times it as phase 6 does,
+   against one library call (``F.group_norm``;
+   ``aten.native_group_norm_backward``) and its bound (bytes / 3.35 TB/s);
+16. prints the kernels' JSON line, the card line, and the final JSON line.
 
 It exits non-zero without a result when CUDA is not available. Scratch
 files go under ``build/chip_smoke/``.
@@ -470,37 +490,50 @@ def make_inputs(dev):
     return graphs, params, model
 
 
-# each kernel's dispatcher in ops/conv_fused.py
+# each kernel's dispatcher in ops/conv_fused.py or ops/groupnorm.py
 DISPATCH = {
     "conv3x3x3_fwd": "conv_fwd",
     "conv3x3x3_dx": "conv_dx",
     "conv3x3x3_wgrad": "conv_wgrad",
     "max_pool_buf_fwd": "pool_fwd",
     "max_pool_buf_bwd": "pool_bwd",
+    "gn_stats": "gn_stats",
+    "gn_apply": "gn_apply",
+    "gn_bwd_reduce": "gn_bwd_reduce",
+    "gn_bwd_dx": "gn_bwd_dx",
 }
+GN_KERNELS = ["gn_stats", "gn_apply", "gn_bwd_reduce", "gn_bwd_dx"]
+
+
+def dispatch_module(kernel):
+    from unetsulc_tpu_torch.ops import conv_fused, groupnorm
+
+    return groupnorm if kernel in GN_KERNELS else conv_fused
+
+
+def dispatcher(kernel):
+    return getattr(dispatch_module(kernel), DISPATCH[kernel])
 
 
 @contextlib.contextmanager
-def patched_ops(**fns):
-    """Replace the named kernel dispatchers of ``ops/conv_fused.py``
-    (``conv_fwd``, ``conv_dx``, ``conv_wgrad``, ``pool_fwd``,
-    ``pool_bwd``) for the duration."""
-    from unetsulc_tpu_torch.ops import conv_fused as cf
-
-    saved = {name: getattr(cf, name) for name in fns}
-    for name, fn in fns.items():
-        setattr(cf, name, fn)
+def patched_ops(fns):
+    """Replace the dispatcher of each kernel named in ``fns`` (``kernel
+    name -> function``) for the duration."""
+    saved = [(dispatch_module(k), DISPATCH[k], dispatcher(k)) for k in fns]
+    for k, fn in fns.items():
+        setattr(dispatch_module(k), DISPATCH[k], fn)
     try:
         yield
     finally:
-        for name, fn in saved.items():
-            setattr(cf, name, fn)
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
 
 
 def plain_fns():
     """Each kernel's plain version, by kernel name, with its dispatcher's
     signature (the packed weights are the kernels' own and unused)."""
     from unetsulc_tpu_torch.ops import conv_fused as cf
+    from unetsulc_tpu_torch.ops import groupnorm as gn
 
     return {
         "conv3x3x3_fwd": lambda xs, affs, w, b, g, packed=None:
@@ -510,28 +543,29 @@ def plain_fns():
         "conv3x3x3_wgrad": cf.conv3x3x3_wgrad_plain,
         "max_pool_buf_fwd": cf.max_pool_buf_plain,
         "max_pool_buf_bwd": cf.max_pool_buf_bwd_plain,
+        "gn_stats": gn.gn_stats_plain,
+        "gn_apply": gn.gn_apply_plain,
+        "gn_bwd_reduce": gn.gn_bwd_reduce_plain,
+        "gn_bwd_dx": gn.gn_bwd_dx_plain,
     }
 
 
 def plain_ops():
     """Every kernel's plain version (on the card) in place of the kernel,
     for the reference forward and train step."""
-    return patched_ops(**{DISPATCH[k]: fn for k, fn in plain_fns().items()})
+    return patched_ops(plain_fns())
 
 
 def recording(calls, names):
     """Record the inputs of every call of the kernels ``names`` as
     (kernel name, args, kwargs); the calls still run their kernels."""
-    from unetsulc_tpu_torch.ops import conv_fused as cf
-
     def rec(name, fn):
         def call(*args, **kw):
             calls.append((name, args, kw))
             return fn(*args, **kw)
         return call
 
-    return patched_ops(**{DISPATCH[n]: rec(n, getattr(cf, DISPATCH[n]))
-                          for n in names})
+    return patched_ops({n: rec(n, dispatcher(n)) for n in names})
 
 
 def volume_of(graph, dev):
@@ -564,6 +598,8 @@ def phase_end_to_end(dev):
     check(counts["conv3x3x3_fwd"] == 13 * N_GRAPHS,
           f"kernel A launched {counts['conv3x3x3_fwd']} times, "
           f"expected {13 * N_GRAPHS}")
+    check(all(counts[k] == 0 for k in GN_KERNELS),
+          "the fused labelling path launched a GroupNorm kernel")
     check(counts["max_pool_buf_fwd"] == 3 * N_GRAPHS,
           f"kernel B launched {counts['max_pool_buf_fwd']} times, "
           f"expected {3 * N_GRAPHS}")
@@ -592,16 +628,37 @@ def phase_end_to_end(dev):
     check(np.isfinite(yscores).all(), "non-finite probabilities")
     check(np.allclose(yscores.sum(1), 1.0, atol=1e-4), "rows do not sum to 1")
 
-    # label latency per graph, one graph at a time (no pipelining), split
-    # into read + extract; voxelize + upload + forward + argmax fetch;
-    # host re-segmentation + device vote
+    label_ms = label_latency(lab, graphs)
+
+    # the same forward through the plain versions, on the card
+    x = volume_of(graphs[0], dev)
+    fwd = lambda: model(x, train=False, apply_final_activation=False,  # noqa: E731
+                        padded_output=True)
+    logits = fwd()
+    with plain_ops():
+        ref = fwd()
+    sync()
+    check_logits(logits[1:-1, 1:-1, 1:-1], ref[1:-1, 1:-1, 1:-1])
+    fwd_ms = forward_ms(fwd)
+    print(f"forward 96^3 flagship bf16: {fwd_ms:.2f} ms (median of 5, host "
+          f"clock around a synchronized call)", flush=True)
+    return model, x, counts, label_ms, fwd_ms
+
+
+def label_latency(lab, graphs):
+    """Label latency per graph, one graph at a time (no pipelining), split
+    into read + extract; voxelize + upload + forward + argmax fetch; host
+    re-segmentation + device vote. Returns the median in ms."""
+    from unetsulc_tpu_torch.data.extract import extract_data
+    from unetsulc_tpu_torch.io.container import read_graph
+
     lat, splits = [], []
     for g in graphs:
         t0 = time.perf_counter()
         d = extract_data(read_graph(g))
         t1 = time.perf_counter()
         h = lab._labeling_dispatch(g, d["bck2"], d["names"])
-        h["done"].synchronize()
+        lab._fetch_ypred(h)
         t2 = time.perf_counter()
         lab._cut_labels_device(h, d["vert"], d["bck2"], [20])
         t3 = time.perf_counter()
@@ -613,17 +670,14 @@ def phase_end_to_end(dev):
     med = [statistics.median(s[i] for s in splits) for i in range(3)]
     print(f"  split (medians): read+extract {med[0]:.1f} ms, voxelize+"
           f"forward {med[1]:.1f} ms, cut+vote {med[2]:.1f} ms", flush=True)
+    return label_ms
 
-    # the same forward through the plain versions, on the card
-    x = volume_of(graphs[0], dev)
-    fwd = lambda: model(x, train=False, apply_final_activation=False,  # noqa: E731
-                        padded_output=True)
-    logits = fwd()
-    with plain_ops():
-        ref = fwd()
-    sync()
-    check(bool(torch.isfinite(logits).all()), "non-finite logits")
-    li, ri = logits[1:-1, 1:-1, 1:-1], ref[1:-1, 1:-1, 1:-1]
+
+def check_logits(li, ri):
+    """The kernels' logits li against the plain versions' ri: within
+    ``LOGIT_TOL`` x max |logit|, and the same argmax wherever the top-2
+    margin is clear of twice that."""
+    check(bool(torch.isfinite(li).all()), "non-finite logits")
     err = (li - ri).abs().max().item()
     tol = LOGIT_TOL * ri.abs().max().item()
     top2 = ri.topk(2, -1).values
@@ -637,6 +691,10 @@ def phase_end_to_end(dev):
     check(err <= tol, "kernel forward differs from the plain forward")
     check(bool(agree[sure].all()), "argmax differs where the margin is clear")
 
+
+def forward_ms(fwd):
+    """Median of 5 host-clock times of a synchronized ``fwd()``, after 2
+    warm-up calls."""
     for _ in range(2):
         fwd()
     sync()
@@ -646,10 +704,7 @@ def phase_end_to_end(dev):
         fwd()
         sync()
         times.append((time.time() - t) * 1e3)
-    fwd_ms = statistics.median(times)
-    print(f"forward 96^3 flagship bf16: {fwd_ms:.2f} ms (median of 5, host "
-          f"clock around a synchronized call)", flush=True)
-    return model, x, counts, label_ms, fwd_ms
+    return statistics.median(times)
 
 
 @torch.no_grad()
@@ -696,7 +751,7 @@ def phase_timing(model, x):
 
 
 @torch.no_grad()
-def phase_profile(model, x):
+def phase_profile(model, x, padded=True):
     """Where one flagship forward's time goes: device time by kernel name
     (torch.profiler), the device's busy share of the forward's host-clock
     time, and the forward's peak device memory."""
@@ -704,7 +759,7 @@ def phase_profile(model, x):
     from torch.profiler import ProfilerActivity, profile
 
     fwd = lambda: model(x, train=False, apply_final_activation=False,  # noqa: E731
-                        padded_output=True)
+                        padded_output=padded)
     fwd()
     sync()
     torch.cuda.reset_peak_memory_stats()
@@ -835,6 +890,9 @@ def kernel_class(key):
         return "E"
     if "max_pool_buf_fwd_kernel" in key:
         return "B"
+    for name in GN_KERNELS:
+        if f"{name}_kernel" in key:
+            return name
     return "plain"
 
 
@@ -931,8 +989,9 @@ def phase_train(dev):
           "sync", flush=True)
     launches = dict(kernels.launch_counts)
     print(f"  launches per train step: {launches}", flush=True)
-    want = {"conv3x3x3_fwd": 13, "max_pool_buf_fwd": 3, "conv3x3x3_dx": 16,
-            "conv3x3x3_wgrad": 16, "max_pool_buf_bwd": 3}
+    want = {k: 0 for k in launches}
+    want.update(conv3x3x3_fwd=13, max_pool_buf_fwd=3, conv3x3x3_dx=16,
+                conv3x3x3_wgrad=16, max_pool_buf_bwd=3)
     check(launches == want, f"launches per step {launches}, expected {want}")
     for _ in range(WARMUP - 1):
         losses.append(step(state, x, labels)[0])
@@ -1014,7 +1073,6 @@ def phase_backward_timing(model, step, x, labels):
     """Every C, D, E launch of one training step, recorded, held to its
     plain version and timed. The recorded step runs at lr 0, so the weights
     that the launches read are still those of the recorded inputs."""
-    from unetsulc_tpu_torch.ops import conv_fused as cf
     from unetsulc_tpu_torch.train.step import TrainState
 
     names = ["conv3x3x3_dx", "conv3x3x3_wgrad", "max_pool_buf_bwd"]
@@ -1026,7 +1084,7 @@ def phase_backward_timing(model, step, x, labels):
     rows = {n: [] for n in names}
     with torch.no_grad():
         for name, args, kw in calls:
-            kern = lambda: getattr(cf, DISPATCH[name])(*args, **kw)  # noqa: E731
+            kern = lambda: dispatcher(name)(*args, **kw)  # noqa: E731
             plain = lambda: plain_of[name](*args)  # noqa: E731
             if name == "conv3x3x3_dx":
                 dconv, w, cins, br, aff, xb, g = args[:7]
@@ -1056,6 +1114,414 @@ def phase_backward_timing(model, step, x, labels):
             sync()
             rows[name].append(timed_row(name, shape, kern, plain, lib, bound,
                                         err))
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# the non-fused path: GroupNorm kernels, labelling, training (phases 12-15)
+# ---------------------------------------------------------------------------
+
+# the GroupNorms of the flagship non-fused forward: (layer, extent, C), G 32
+GN_LAYERS = [
+    ("enc0.norm1", 96, 32), ("enc0.norm2", 96, 64),
+    ("enc1.norm1", 49, 64), ("enc1.norm2", 49, 128),
+    ("enc2.norm1", 25, 128), ("enc2.norm2", 25, 256),
+    ("enc3.norm1", 13, 256), ("enc3.norm2", 13, 512),
+    ("dec0.norm1", 25, 256), ("dec0.norm2", 25, 256),
+    ("dec1.norm1", 49, 128), ("dec1.norm2", 49, 128),
+    ("dec2.norm1", 96, 64), ("dec2.norm2", 96, 64),
+]
+
+
+def gn_inputs(n, s, c, dtype, gen, dev):
+    """A post-ReLU-like (N, S, C) slab (exact zeros, ties), a small
+    cotangent of both signs, scale ~ 1 and bias ~ 0 (f32)."""
+    x = torch.relu(torch.randn((n, s, c), generator=gen, device=dev)).to(dtype)
+    g = (1e-3 * torch.randn((n, s, c), generator=gen, device=dev)).to(dtype)
+    scale = 1.0 + 0.1 * torch.randn(c, generator=gen, device=dev)
+    bias = 0.1 * torch.randn(c, generator=gen, device=dev)
+    return x, g, scale, bias
+
+
+def check_gn(x, g, scale, bias, groups, what):
+    """Each GroupNorm kernel against its plain version on the same inputs
+    (apply, reduce and dx fed the plain statistics): mean and inv rtol
+    1e-4; apply within 1 bf16 ulp (2^-7 |p| + 1e-3); reduce rtol 1e-3 with
+    atol 1e-3 max|p|; dx as kernel C (2^-7 |p| + 1e-3 max|p|). Returns
+    each kernel's max |error|."""
+    from unetsulc_tpu_torch.ops import groupnorm as gn
+
+    mean, inv = gn.gn_stats(x, groups, 1e-5)
+    pm, pi = gn.gn_stats_plain(x, groups, 1e-5)
+    sync()
+    torch.testing.assert_close(mean, pm, rtol=1e-4, atol=0,
+                               msg=lambda m: f"gn_stats mean ({what}): {m}")
+    torch.testing.assert_close(inv, pi, rtol=1e-4, atol=0,
+                               msg=lambda m: f"gn_stats inv ({what}): {m}")
+    err = {"gn_stats": max((mean - pm).abs().max().item(),
+                           (inv - pi).abs().max().item())}
+    yk = gn.gn_apply(x, pm, pi, scale, bias)
+    yp = gn.gn_apply_plain(x, pm, pi, scale, bias)
+    sync()
+    check(yk.dtype == x.dtype, f"gn_apply dtype ({what})")
+    torch.testing.assert_close(yk.float(), yp.float(), rtol=2 ** -7, atol=1e-3,
+                               msg=lambda m: f"gn_apply ({what}): {m}")
+    err["gn_apply"] = (yk.float() - yp.float()).abs().max().item()
+    rk = gn.gn_bwd_reduce(x, g, pm, pi, scale)
+    rp = gn.gn_bwd_reduce_plain(x, g, pm, pi, scale)
+    sync()
+    err["gn_bwd_reduce"] = max(
+        check_grad(k, p, 1e-3, f"gn_bwd_reduce {i} ({what})")
+        for i, (k, p) in enumerate(zip(rk, rp)))
+    dk = gn.gn_bwd_dx(x, g, pm, pi, scale, rp[2], rp[3])
+    dp = gn.gn_bwd_dx_plain(x, g, pm, pi, scale, rp[2], rp[3])
+    sync()
+    check(dk.dtype == x.dtype, f"gn_bwd_dx dtype ({what})")
+    err["gn_bwd_dx"] = check_grad(dk, dp, 2 ** -7, f"gn_bwd_dx ({what})")
+    return err
+
+
+@torch.no_grad()
+def phase_gn_checks(dev):
+    """The four GroupNorm kernels against their plain versions at the 14
+    GroupNorms of the flagship non-fused forward (bf16, G 32), one in f32,
+    and one with N 2, odd extents and a channel count off the 16-byte
+    vectors; gn_stats is the same in two runs."""
+    from unetsulc_tpu_torch.ops import groupnorm as gn
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    cases = [(f"{name} {ext}^3 x {c} bf16", 1, ext ** 3, c, torch.bfloat16, 32)
+             for name, ext, c in GN_LAYERS]
+    cases += [("enc1.norm2 49^3 x 128 f32", 1, 49 ** 3, 128, torch.float32, 32),
+              ("N 2, 9x7x5 x 36 bf16, G 12", 2, 9 * 7 * 5, 36, torch.bfloat16,
+               12)]
+    worst = {k: 0.0 for k in GN_KERNELS}
+    for what, n, s_, c, dtype, groups in cases:
+        x, g, scale, bias = gn_inputs(n, s_, c, dtype, gen, dev)
+        err = check_gn(x, g, scale, bias, groups, what)
+        for k, v in err.items():
+            worst[k] = max(worst[k], v)
+        print(f"  GN {what}: " + ", ".join(f"{k} {v:.3g}" for k, v in err.items()),
+              flush=True)
+    x, _, _, _ = gn_inputs(1, 96 ** 3, 64, torch.bfloat16, gen, dev)
+    a, b = gn.gn_stats(x, 32, 1e-5), gn.gn_stats(x, 32, 1e-5)
+    check(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]),
+          "gn_stats differs between two runs")
+    print("  gn_stats: bit-identical in two runs at 96^3 x 64", flush=True)
+    return worst
+
+
+def nonfused_model(dev, **kw):
+    """The flagship model with the transposed-conv decoder (in 1, init 64,
+    63 classes, 'crg', num_conv 1, interpolate=False, bf16), seed 0."""
+    from unetsulc_tpu_torch.models.unet3d import UNet3D
+
+    return UNet3D(in_channels=1, out_channels=CLASSES, init_channel_number=64,
+                  interpolate=False, device=dev, seed=0, **kw)
+
+
+@contextlib.contextmanager
+def gn_layouts(seen):
+    """Record, for every GroupNorm call of the non-fused model, whether its
+    input arrived contiguous in (N, X, Y, Z, C), i.e. cuDNN's conv output
+    was channels-last and the kernels read it in place."""
+    from unetsulc_tpu_torch.models import unet3d
+
+    orig = unet3d.group_norm
+
+    def call(x, *args, **kw):
+        seen.append(x.is_contiguous())
+        return orig(x, *args, **kw)
+
+    unet3d.group_norm = call
+    try:
+        yield
+    finally:
+        unet3d.group_norm = orig
+
+
+@torch.no_grad()
+def phase_nonfused_labelling(dev):
+    """Labelling on the non-fused path end to end: a random flagship
+    interpolate=False model saved as .mdsm (with its ``upsample`` keys),
+    ``label.main`` on phase 5's three graphs with the launch counts zeroed
+    just before and read just after; label latency and forward time; the
+    same forward with the plain GroupNorm on the card."""
+    from unetsulc_tpu_torch import kernels, label
+    from unetsulc_tpu_torch.method.base import SulciLabeller
+
+    model = nonfused_model(dev)
+    state = model.state_dict()
+    check(sum("upsample" in k for k in state) == 6, "no upsample keys")
+    model_file = os.path.join(WORK, "transposed_model.mdsm")
+    torch.save(state, model_file)
+    width = model.init_channel_number
+    dict_model = {"name": "transposed", "model_file": model_file,
+                  "in_channels": 1, "out_channels": CLASSES,
+                  "init_channel_number": width, "num_filter": width,
+                  "interpolate": False}
+    params = os.path.join(WORK, "transposed_params.json")
+    with open(params, "w") as f:
+        json.dump({"dict_model": dict_model, "sulci_side_list": LABELS,
+                   "cutting_threshold": 20}, f)
+    graphs = [os.path.join(WORK, f"subj{i}_L.npz") for i in range(N_GRAPHS)]
+    out_dir = os.path.join(WORK, "labels_transposed")
+    kernels.reset_launch_counts()
+    t = time.time()
+    label.main(["-m", params, "-g", *graphs, "-o", out_dir,
+                "--threshold", "20", "--device", str(dev)])
+    sync()
+    wall = time.time() - t
+    counts = dict(kernels.launch_counts)
+    print(f"  launches on the non-fused labelling path: {counts}", flush=True)
+    want = {k: 0 for k in counts}
+    want.update(gn_stats=14 * N_GRAPHS, gn_apply=14 * N_GRAPHS)
+    check(counts == want, f"launches {counts}, expected {want}")
+    with open(os.path.join(out_dir, "labeling_summary.json")) as f:
+        summary = json.load(f)
+    check(sorted(summary) == sorted(graphs), "labeling_summary.json incomplete")
+    print(f"label.main (non-fused): {wall:.3f} s for {N_GRAPHS} graphs "
+          f"(model build + load included)", flush=True)
+
+    lab = SulciLabeller([], "L", dict_model={"name": "transposed"},
+                        dict_bck2={}, dict_names={}, sulci_side_list=LABELS,
+                        device=dev)
+    lab.model = model.eval()
+    label_ms = label_latency(lab, graphs)
+
+    x = volume_of(graphs[0], dev)
+    fwd = lambda: model(x, train=False, apply_final_activation=False)  # noqa: E731
+    seen = []
+    with gn_layouts(seen):
+        logits = fwd()
+    print(f"  GroupNorm inputs contiguous channels-last (read in place): "
+          f"{sum(seen)} of {len(seen)}; copied first: "
+          f"{[GN_LAYERS[i][0] for i, ok in enumerate(seen) if not ok]}",
+          flush=True)
+    with patched_ops({k: plain_fns()[k] for k in ("gn_stats", "gn_apply")}):
+        ref = fwd()
+    sync()
+    check(tuple(logits.shape) == (1, *VOLUME, CLASSES), "logits shape")
+    check_logits(logits[0], ref[0])
+    fwd_ms = forward_ms(fwd)
+    print(f"forward 96^3 flagship bf16, non-fused: {fwd_ms:.2f} ms (median of "
+          f"5, host clock around a synchronized call)", flush=True)
+    phase_profile(model, x, padded=False)
+    return counts, label_ms, fwd_ms
+
+
+def phase_nonfused_train(dev):
+    """The training step of the non-fused flagship model on phase 9's
+    batch: against the plain step (only GroupNorm differs) at phase 9's
+    bars; launches per step; 3 warm-up and 20 timed steps; a falling loss;
+    peak memory; a profile of one step; one step with dropout 0.1 at batch
+    2."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from unetsulc_tpu_torch import kernels
+    from unetsulc_tpu_torch.train.step import TrainState, make_train_step
+
+    model = nonfused_model(dev)
+    x, labels = make_batch(dev)
+    step = make_train_step(model, CLASSES, momentum=0.9)
+    at_init = step_against_plain(model, step, x, labels,
+                                 "initial state, non-fused")
+
+    state = TrainState.create(model, lr=TRAIN_LR)
+    kernels.reset_launch_counts()
+    losses = [step(state, x, labels)[0]]
+    sync()
+    launches = dict(kernels.launch_counts)
+    print(f"  launches per non-fused train step: {launches}", flush=True)
+    want = {k: 14 if k in GN_KERNELS else 0 for k in launches}
+    check(launches == want, f"launches per step {launches}, expected {want}")
+    for _ in range(WARMUP - 1):
+        losses.append(step(state, x, labels)[0])
+    losses[-1].item()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    for _ in range(STEPS):
+        losses.append(step(state, x, labels)[0])
+    curve = torch.stack(losses).cpu()
+    dt = time.perf_counter() - t
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    step_ms = dt / STEPS * 1e3
+    print(f"train step 96^3 flagship bf16, non-fused: {step_ms:.2f} ms/step, "
+          f"{np.prod(VOLUME) * STEPS / dt:.1f} voxels/s, peak device memory "
+          f"{peak_gb:.2f} GB ({STEPS} steps after {WARMUP} warm-up)", flush=True)
+    print("  loss by step: " + ", ".join(f"{v:.4f}" for v in curve.tolist()),
+          flush=True)
+    check(bool(torch.isfinite(curve).all()), "non-finite loss")
+    check(curve[-1].item() < curve[0].item(), "non-fused loss did not fall")
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        step(state, x, labels)
+        sync()
+        prof_ms = (time.perf_counter() - t) * 1e3
+    by_class, plain = {}, []
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            k = kernel_class(e.key)
+            ms = e.self_device_time_total / 1e3
+            by_class[k] = by_class.get(k, 0.0) + ms
+            if k == "plain":
+                plain.append((ms, e.count, e.key))
+    busy = sum(by_class.values())
+    if busy:
+        print(f"  one non-fused step under the profiler: {prof_ms:.2f} ms host "
+              f"clock, device busy {busy:.2f} ms = {busy / prof_ms * 100:.1f}%; "
+              + ", ".join(f"{k} {v:.2f} ms" for k, v in sorted(by_class.items())),
+              flush=True)
+        for ms, count, key in sorted(plain, reverse=True)[:15]:
+            print(f"    {ms:9.3f} ms {count:4d}x  {key[:90]}", flush=True)
+    else:
+        print("  device busy share: not measured (the profiler saw no device "
+              "time)", flush=True)
+
+    # dropout 0.1 at batch 2: one batched forward, a finite loss
+    dmodel = nonfused_model(dev, dropout=0.1)
+    x2, l2 = torch.cat([x, x.flip(1)]), torch.cat([labels, labels.flip(1)])
+    kernels.reset_launch_counts()
+    dloss = make_train_step(dmodel, CLASSES)(
+        TrainState.create(dmodel, lr=TRAIN_LR), x2, l2)[0].item()
+    print(f"  dropout 0.1, batch 2: loss {dloss:.4f}, launches "
+          f"{ {k: kernels.launch_counts[k] for k in GN_KERNELS} }", flush=True)
+    check(np.isfinite(dloss), "dropout step: non-finite loss")
+    del dmodel
+    stats = dict(step_ms=step_ms, peak_gb=peak_gb, loss_first=curve[0].item(),
+                 loss_last=curve[-1].item(), at_init=at_init)
+    return launches, stats, model, step, x, labels
+
+
+def gn_bound(name, x3, groups):
+    """The least time of one GroupNorm launch: bytes (each input read once,
+    each output written once) over 3.35 TB/s against f32 operations over
+    67 TFLOP/s (3, 3, 5 and 7 per element for stats, apply, reduce, dx)."""
+    n, s, c = x3.shape
+    big = float(n * s * c * x3.element_size())
+    small = 4.0 * n * groups
+    nbytes, ops = {
+        "gn_stats": (big + 2 * small, 3.0),
+        "gn_apply": (2 * big + 2 * small + 8.0 * c, 3.0),
+        "gn_bwd_reduce": (2 * big + 4 * small + 12.0 * c, 5.0),
+        "gn_bwd_dx": (3 * big + 4 * small + 4.0 * c, 7.0),
+    }[name]
+    return max(ops * n * s * c / PEAK_F32_FLOPS, nbytes / PEAK_BYTES) * 1e3
+
+
+def gn_library_args(x3, scale, bias):
+    """PyTorch's GroupNorm operands for the (N, S, C) slab of a cubic
+    volume: the channels-first view of its channels-last memory (5-D, so
+    ``channels_last_3d``) and the affine in the input's dtype, as the
+    library takes it."""
+    n, s, c = x3.shape
+    e = round(s ** (1 / 3))
+    check(e ** 3 == s, f"slab of {s} voxels is not a cube")
+    v = x3.view(n, e, e, e, c).permute(0, 4, 1, 2, 3)
+    return v, scale.to(x3.dtype), bias.to(x3.dtype), (n, c, s)
+
+
+def gn_operands(name, args):
+    """(x3, groups, scale, bias) of a recorded call of a GroupNorm
+    dispatcher (``gn_stats(x3, G, eps)``, ``gn_apply(x3, mean, inv, scale,
+    bias)``, ``gn_bwd_reduce(x3, g3, mean, inv, scale)``, ``gn_bwd_dx(x3,
+    g3, mean, inv, scale, sdx, sdxx)``); the affine is the identity where
+    the call has none."""
+    x3 = args[0]
+    ones = torch.ones(x3.shape[-1], device=x3.device)
+    if name == "gn_stats":
+        return x3, int(args[1]), ones, ones * 0
+    if name == "gn_apply":
+        return x3, int(args[1].shape[1]), args[3], args[4]
+    return x3, int(args[2].shape[1]), args[4], ones * 0
+
+
+def gn_library_call(name, args):
+    """One PyTorch call computing the same function (a yardstick; the port
+    never calls it): ``F.group_norm`` on the channels-last view for
+    gn_stats and gn_apply (the whole forward), and
+    ``aten.native_group_norm_backward`` for gn_bwd_reduce and gn_bwd_dx
+    (dx, dscale and dbias together). The backward takes channels-first
+    contiguous x and g only: their copies are made here, before timing,
+    and are not in its time."""
+    x3, groups, scale, bias = gn_operands(name, args)
+    v, w, b, (n, c, s) = gn_library_args(x3, scale, bias)
+    if name in ("gn_stats", "gn_apply"):
+        return lambda: F.group_norm(v, groups, w, b, 1e-5)
+    vc = v.contiguous()
+    gc = args[1].view(v.permute(0, 2, 3, 4, 1).shape).permute(
+        0, 4, 1, 2, 3).contiguous()
+    _, mean, rstd = torch.ops.aten.native_group_norm(vc, w, b, n, c, s, groups,
+                                                      1e-5)
+    return lambda: torch.ops.aten.native_group_norm_backward(
+        gc, vc, mean, rstd, w, n, c, s, groups, [True, True, True])
+
+
+def gn_check_call(name, out_k, out_p, what):
+    """A recorded launch against its plain version at phase 12's bars;
+    returns the max |error|."""
+    if name == "gn_stats":
+        for k, p in zip(out_k, out_p):
+            torch.testing.assert_close(k, p, rtol=1e-4, atol=0,
+                                       msg=lambda m: f"gn_stats ({what}): {m}")
+        return max((k - p).abs().max().item() for k, p in zip(out_k, out_p))
+    if name == "gn_apply":
+        torch.testing.assert_close(out_k.float(), out_p.float(), rtol=2 ** -7,
+                                   atol=1e-3,
+                                   msg=lambda m: f"gn_apply ({what}): {m}")
+        return (out_k.float() - out_p.float()).abs().max().item()
+    if name == "gn_bwd_reduce":
+        return max(check_grad(k, p, 1e-3, f"gn_bwd_reduce ({what})")
+                   for k, p in zip(out_k, out_p))
+    return check_grad(out_k, out_p, 2 ** -7, f"gn_bwd_dx ({what})")
+
+
+def phase_gn_timing(model, step, x, labels):
+    """Every GroupNorm launch of one non-fused training step (its forward
+    and its backward), recorded at lr 0, held to its plain version and
+    timed as phase 6 does, against one library call and its bound. Once,
+    at 96^3 x 64, the library calls are profiled to show what they launch
+    (layout copies included)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from unetsulc_tpu_torch.train.step import TrainState
+
+    calls = []
+    with recording(calls, GN_KERNELS):
+        step(TrainState.create(model, lr=0.0), x, labels)
+    sync()
+    check(len(calls) == 4 * 14, f"{len(calls)} GroupNorm launches recorded")
+    plain_of = plain_fns()
+    rows = {n: [] for n in GN_KERNELS}
+    shown = set()
+    with torch.no_grad():
+        for name, args, kw in calls:
+            x3, groups, _, _ = gn_operands(name, args)
+            kern = lambda: dispatcher(name)(*args, **kw)  # noqa: E731
+            plain = lambda: plain_of[name](*args)  # noqa: E731
+            lib = gn_library_call(name, args)
+            shape = f"{int(x3.shape[2])} @{int(x3.shape[1])} voxels"
+            err = gn_check_call(name, kern(), plain(), shape)
+            sync()
+            key = name in ("gn_stats", "gn_apply")  # one library call each
+            if tuple(x3.shape[1:]) == (96 ** 3, 64) and key not in shown:
+                shown.add(key)
+                lib()
+                sync()
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    lib()
+                    sync()
+                ks = [f"{e.count}x {e.key[:100]} "
+                      f"{e.self_device_time_total / 1e3:.3f} ms"
+                      for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA]
+                print(f"  library call of {name} at 96^3 x 64 launches:\n    "
+                      + "\n    ".join(ks), flush=True)
+            rows[name].append(timed_row(name, shape, kern, plain, lib,
+                                        gn_bound(name, x3, groups), err))
     return rows
 
 
@@ -1093,7 +1559,21 @@ def main():
     print("phase 10: kernel times over one flagship training step's "
           "backward", flush=True)
     rows.update(phase_backward_timing(tmodel, step, xb, lb))
+    del tmodel, step
+    print("phase 12: GroupNorm kernels against their plain versions",
+          flush=True)
+    err_gn = phase_gn_checks(dev)
+    print("phase 13: the non-fused labelling path end to end", flush=True)
+    nf_counts, nf_label_ms, nf_fwd_ms = phase_nonfused_labelling(dev)
+    print("phase 14: the non-fused training step", flush=True)
+    nf_launches, nf_train, nmodel, nstep, xb, lb = phase_nonfused_train(dev)
+    print("phase 15: GroupNorm kernel times over one non-fused training "
+          "step", flush=True)
+    rows.update(phase_gn_timing(nmodel, nstep, xb, lb))
+    del nmodel, nstep
 
+    gn_src = "unetsulc_tpu_torch/csrc/group_norm.cu"
+    gn_cover = "one 96^3 non-fused flagship training step"
     meta = {
         "conv3x3x3_fwd": ("unetsulc_tpu_torch/csrc/conv3x3x3_fwd.cu",
                           "unetsulc_tpu/ops/conv_pallas.py:370", "operations",
@@ -1110,22 +1590,42 @@ def main():
         "max_pool_buf_bwd": ("unetsulc_tpu_torch/csrc/max_pool_buf_bwd.cu",
                              "unetsulc_tpu/ops/conv_pallas.py:1695", "bytes",
                              "one 96^3 flagship training step"),
+        # gn_stats and gn_apply together replace groupnorm_pallas.py:41;
+        # each also replaces one chunked kernel (:44, :69)
+        "gn_stats": (gn_src, "unetsulc_tpu/ops/groupnorm_pallas.py:41",
+                     "bytes", gn_cover),
+        "gn_apply": (gn_src, "unetsulc_tpu/ops/attic/"
+                     "groupnorm_pallas_chunked.py:69", "bytes", gn_cover),
+        "gn_bwd_reduce": (gn_src, "unetsulc_tpu/ops/attic/"
+                          "groupnorm_pallas_chunked.py:145", "bytes",
+                          gn_cover),
+        "gn_bwd_dx": (gn_src, "unetsulc_tpu/ops/attic/"
+                      "groupnorm_pallas_chunked.py:183", "bytes", gn_cover),
     }
+    # launches on the main paths: A and B on the fused labelling path
+    # (phase 5), C, D and E per fused training step (phase 9), gn_stats and
+    # gn_apply on the non-fused labelling path (phase 13), the GroupNorm
+    # backward per non-fused training step (phase 14)
+    main_counts = {**{k: counts[k] for k in
+                      ("conv3x3x3_fwd", "max_pool_buf_fwd")},
+                   **{k: train_launches[k] for k in
+                      ("conv3x3x3_dx", "conv3x3x3_wgrad", "max_pool_buf_bwd")},
+                   **{k: nf_counts[k] for k in ("gn_stats", "gn_apply")},
+                   **{k: nf_launches[k] for k in
+                      ("gn_bwd_reduce", "gn_bwd_dx")}}
     line = []
     for name, (src, replaces, bound_by, cover) in meta.items():
         rs = rows[name]
         err = max(r["max_abs_err"] for r in rs)
         if name == "conv3x3x3_fwd":
             err = max(err, err_a)
-        err = max(err, err_bwd.get(name, 0.0))
+        err = max(err, err_bwd.get(name, 0.0), err_gn.get(name, 0.0))
         line.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces,
-            # A and B: the labelling path (phase 5); C, D, E: the training
-            # step (phase 9)
-            "launches": counts[name] if name in counts and counts[name]
-            else train_launches[name],
-            "launches_per_train_step": train_launches[name],
+            "launches": main_counts[name],
+            "launches_per_train_step": (nf_launches if name in GN_KERNELS
+                                        else train_launches)[name],
             "max_abs_err": err,
             "ms": sum(r["ms"] for r in rs),
             "plain_ms": sum(r["plain_ms"] for r in rs),
@@ -1136,7 +1636,9 @@ def main():
             "times_cover": cover,
         })
     print(f"label latency {label_ms:.1f} ms/graph, forward {fwd_ms:.2f} ms, "
-          f"train step {train['step_ms']:.2f} ms, total script "
+          f"train step {train['step_ms']:.2f} ms; non-fused: label latency "
+          f"{nf_label_ms:.1f} ms/graph, forward {nf_fwd_ms:.2f} ms, train "
+          f"step {nf_train['step_ms']:.2f} ms; total script "
           f"{time.time() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": line}), flush=True)
     print(card_line(), flush=True)

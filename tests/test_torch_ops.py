@@ -178,7 +178,19 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         kernels.conv3x3x3_wgrad(buf, ab, buf)
     with pytest.raises(ValueError, match="CUDA"):
         kernels.max_pool_buf_bwd(buf, ab, buf, buf)
+    x3 = torch.zeros((1, 10, 8), dtype=torch.bfloat16)
+    st = torch.zeros((1, 2))
+    c8 = torch.zeros(8)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.gn_stats(x3, 2, 1e-5)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.gn_apply(x3, st, st, c8, c8)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.gn_bwd_reduce(x3, x3, st, st, c8)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.gn_bwd_dx(x3, x3, st, st, c8, st, st)
     assert set(kernels.launch_counts) == {
         "conv3x3x3_fwd", "conv3x3x3_dx", "conv3x3x3_wgrad",
-        "max_pool_buf_fwd", "max_pool_buf_bwd"}
+        "max_pool_buf_fwd", "max_pool_buf_bwd", "gn_stats", "gn_apply",
+        "gn_bwd_reduce", "gn_bwd_dx"}
     assert not any(kernels.launch_counts.values())

@@ -103,18 +103,32 @@ def test_jax_written_mdsm_loads_strict(tmp_path, num_conv):
     (dict(in_channels=9), "in_channels"),
 ])
 def test_ineligible_models_raise(change, match):
-    """What the fused pipeline cannot take raises NotImplementedError naming
-    the ROADMAP item (the JAX package falls back to XLA there)."""
+    """What the fused pipeline cannot take (the flag ``match`` names) no
+    longer raises: the model builds and routes to the non-fused path, as
+    the JAX package falls back to its XLA path, and gives finite logits of
+    the input's shape (tests/test_torch_nonfused.py holds them to JAX)."""
     kw = dict(MODEL, compute_dtype=torch.float32, device="cpu")
     kw.update(change)
-    with pytest.raises(NotImplementedError, match=match) as e:
-        UNet3D(**kw)
-    assert "ROADMAP.md" in str(e.value)
+    m = UNet3D(**kw)
+    assert getattr(m, match) == change[match]
+    x = torch.zeros((1, 8, 8, 8, m.in_channels))
+    x[0, 2:5, 3:6, 1:4] = 1.0
+    assert not m.fused_eligible(x)
+    with torch.no_grad():
+        out = m(x, train=False)
+    assert tuple(out.shape) == (1, 8, 8, 8, 5)
+    assert bool(torch.isfinite(out).all())
 
 
 def test_ineligible_inputs_raise():
+    """Inputs the fused pipeline cannot take (batch 2, an extent below 4)
+    no longer raise: they route to the non-fused path; a wrong channel
+    count still raises."""
     m = UNet3D(**MODEL, compute_dtype=torch.float32, device="cpu")
-    with pytest.raises(NotImplementedError, match="batch > 1"):
-        m(torch.zeros((2, 8, 8, 8, 1)))
-    with pytest.raises(NotImplementedError, match="extents below 4"):
-        m(torch.zeros((1, 8, 3, 8, 1)))
+    for shape in ((2, 8, 8, 8, 1), (1, 8, 3, 8, 1)):
+        x = torch.zeros(shape)
+        assert not m.fused_eligible(x)
+        with torch.no_grad():
+            assert tuple(m(x).shape) == shape[:4] + (5,)
+    with pytest.raises(ValueError, match="expected"):
+        m(torch.zeros((1, 8, 8, 8, 2)))

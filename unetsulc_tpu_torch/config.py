@@ -110,10 +110,11 @@ class TpuConfig:
     """The ``tpu`` sub-dict of ``parameters.json`` (no reference
     counterpart), under the JAX package's key so the same files parse.
 
-    The labelling path reads three fields: ``compute_dtype``,
-    ``shape_buckets`` and ``device_vote``. Every other field is parsed and
-    ignored until the slice that ports what it configures (training,
-    multi-GPU; ROADMAP.md §1)."""
+    The labelling path reads four fields: ``compute_dtype``,
+    ``shape_buckets``, ``device_vote`` and ``pallas_blocks`` (the model's
+    ``fused_blocks``: False sends every input to the non-fused path). Every
+    other field is parsed and ignored until the slice that ports what it
+    configures (training, multi-GPU; ROADMAP.md §1)."""
 
     # compute dtype of the convs and matmuls ('bfloat16' or 'float32');
     # GroupNorm statistics and parameters stay float32 either way

@@ -1,8 +1,10 @@
 """The port's hand-written CUDA kernels: build, binding, launch wrappers.
 
-Five kernels in four sources: A ``conv3x3x3_fwd`` and C ``conv3x3x3_dx``
+Nine kernels in five sources: A ``conv3x3x3_fwd`` and C ``conv3x3x3_dx``
 (one template, ``conv3x3x3_fwd.cu``), D ``conv3x3x3_wgrad``, B
-``max_pool_buf_fwd`` and E ``max_pool_buf_bwd``. Each source in
+``max_pool_buf_fwd``, E ``max_pool_buf_bwd``, and the GroupNorm kernels
+``gn_stats``, ``gn_apply``, ``gn_bwd_reduce`` and ``gn_bwd_dx``
+(``group_norm.cu``). Each source in
 ``unetsulc_tpu_torch/csrc/`` has a plain C interface. At
 first use, every source whose library is missing is compiled by its own
 ``nvcc`` process (all started together) for ``sm_90a`` into
@@ -14,8 +16,9 @@ The wrappers below take CUDA tensors only: they check device, dtype, shape,
 contiguity and alignment, allocate the outputs, launch on the current
 stream, raise if ``cudaGetLastError()`` reports a failure, and add one to
 their entry of :data:`launch_counts`. The plain PyTorch version of each
-kernel lives beside its caller in :mod:`unetsulc_tpu_torch.ops.conv_fused`,
-which takes it for CPU tensors only.
+kernel lives beside its caller in :mod:`unetsulc_tpu_torch.ops.conv_fused`
+or :mod:`unetsulc_tpu_torch.ops.groupnorm`, which take it for CPU tensors
+only.
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ SOURCES = {
     "conv3x3x3_wgrad": "conv3x3x3_wgrad.cu",
     "max_pool_buf_fwd": "max_pool_buf_fwd.cu",
     "max_pool_buf_bwd": "max_pool_buf_bwd.cu",
+    "group_norm": "group_norm.cu",
 }
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -48,6 +52,8 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
 # kernel (C entry point) -> (library, argtypes)
 KERNELS = {
     # kernel A. x1, ab1, c1, x2, ab2, c2, n_inputs, w, npad, bias, cout,
@@ -67,6 +73,25 @@ KERNELS = {
     # kernel E. x, ab, out, cot, c, X, Y, Z, dx, dab, stream
     "max_pool_buf_bwd": ("max_pool_buf_bwd", [_P, _P, _P, _P, _I, _I, _I,
                                               _I, _P, _P, _P]),
+    # GroupNorm. x, dtype, n, s, c, groups, eps, nblocks, partial,
+    # counters, mean, inv, stream
+    "gn_stats": ("group_norm", [_P, _I, _I, _L, _I, _I, _F, _I, _P, _P, _P,
+                                _P, _P]),
+    # x, dtype, n, s, c, groups, mean, inv, scale, bias, out, stream
+    "gn_apply": ("group_norm", [_P, _I, _I, _L, _I, _I, _P, _P, _P, _P, _P,
+                                _P]),
+    # x, g, dtype, n, s, c, groups, mean, inv, scale, nblocks, partial,
+    # nsum, counters, dscale, dbias, sdx, sdxx, stream
+    "gn_bwd_reduce": ("group_norm", [_P, _P, _I, _I, _L, _I, _I, _P, _P, _P,
+                                     _I, _P, _P, _P, _P, _P, _P, _P, _P]),
+    # x, g, dtype, n, s, c, groups, mean, inv, scale, sdx, sdxx, dx, stream
+    "gn_bwd_dx": ("group_norm", [_P, _P, _I, _I, _L, _I, _I, _P, _P, _P, _P,
+                                 _P, _P, _P]),
+}
+# helper (not a kernel) -> (library, argtypes); each returns an int
+HELPERS = {
+    # n, s, c, dtype -> blocks per sample of gn_stats and gn_bwd_reduce
+    "gn_partial_blocks": ("group_norm", [_I, _L, _I, _I]),
 }
 
 # launches of each kernel since the last reset_launch_counts(): each
@@ -147,7 +172,7 @@ def _lib(name: str) -> ctypes.CDLL:
     if lib is None:
         build()
         lib = ctypes.CDLL(str(library_paths()[name]))
-        for kernel, (libname, argtypes) in KERNELS.items():
+        for kernel, (libname, argtypes) in {**KERNELS, **HELPERS}.items():
             if libname == name:
                 fn = getattr(lib, kernel)
                 fn.argtypes = argtypes
@@ -441,3 +466,154 @@ def max_pool_buf_bwd(
     _raise_on(err, "max_pool_buf_bwd")
     launch_counts["max_pool_buf_bwd"] += 1
     return dbuf, dab
+
+
+# ---------------------------------------------------------------------------
+# GroupNorm on a contiguous (N, S, C) slab, bf16 or f32
+# ---------------------------------------------------------------------------
+
+_GN_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
+
+
+def _check_slab(t: torch.Tensor, what: str) -> None:
+    if not t.is_cuda:
+        raise ValueError(f"{what} must be a CUDA tensor, got {t.device}")
+    if t.dtype not in _GN_DTYPES:
+        raise ValueError(f"{what} must be bfloat16 or float32, got {t.dtype}")
+    if t.dim() != 3 or not t.is_contiguous() or min(t.shape) < 1:
+        raise ValueError(f"{what} must be a contiguous non-empty (N, S, C) "
+                         f"slab, got shape {tuple(t.shape)}")
+
+
+def _check_f32(t: torch.Tensor, shape, device, what: str) -> None:
+    if (t.device != device or t.dtype != torch.float32
+            or tuple(t.shape) != tuple(shape) or not t.is_contiguous()):
+        raise ValueError(f"{what} must be a contiguous float32 "
+                         f"{tuple(shape)} tensor on {device}, got "
+                         f"{t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def _check_gn(x: torch.Tensor, groups: int, g: Optional[torch.Tensor] = None):
+    """(n, s, c, dtype code) of a valid slab ``x`` (and cotangent ``g``)."""
+    _check_slab(x, "GroupNorm input")
+    n, s, c = (int(v) for v in x.shape)
+    if groups < 1 or c % groups:
+        raise ValueError(f"{c} channels do not split into {groups} groups")
+    if -(-c // (16 // x.element_size())) > 256:
+        raise ValueError(f"{c} channels exceed the GroupNorm kernels' "
+                         f"{256 * 16 // x.element_size()}")
+    if g is not None:
+        _check_slab(g, "GroupNorm cotangent")
+        if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device:
+            raise ValueError("GroupNorm cotangent differs from its input in "
+                             "shape, dtype or device")
+    return n, s, c, _GN_DTYPES[x.dtype]
+
+
+def _gn_workspace(n: int, s: int, c: int, code: int, extra: int, device):
+    """(blocks per sample, f32 partial sums (N, B, 2, C) plus ``extra``
+    floats, zeroed int32 tickets (N + 1,))."""
+    fn = getattr(_lib("group_norm"), "gn_partial_blocks")
+    nblocks = fn(n, s, c, code)
+    if nblocks < 1:
+        raise ValueError(f"GroupNorm slab ({n}, {s}, {c}) not accepted")
+    ws = torch.empty(n * nblocks * 2 * c + extra, dtype=torch.float32,
+                     device=device)
+    return nblocks, ws, torch.zeros(n + 1, dtype=torch.int32, device=device)
+
+
+def gn_stats(x: torch.Tensor, num_groups: int,
+             eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel ``gn_stats``: (mean_g, inv_g), each (N, G) f32, of the
+    (N, S, C) slab x: mean = sum x / D, inv = rsqrt(sum x^2 / D - mean^2 +
+    eps), D = S * C / G. Per-block partial sums meet in a fixed order, so
+    the result is the same in every run."""
+    n, s, c, code = _check_gn(x, num_groups)
+    nblocks, ws, tickets = _gn_workspace(n, s, c, code, 0, x.device)
+    mean = torch.empty((n, num_groups), dtype=torch.float32, device=x.device)
+    inv = torch.empty_like(mean)
+    fn = _kernel("gn_stats")
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), code, n, s, c, num_groups, float(eps), nblocks,
+                 ws.data_ptr(), tickets.data_ptr(), mean.data_ptr(),
+                 inv.data_ptr(),
+                 torch.cuda.current_stream(x.device).cuda_stream)
+    _raise_on(err, "gn_stats")
+    launch_counts["gn_stats"] += 1
+    return mean, inv
+
+
+def gn_apply(x: torch.Tensor, mean: torch.Tensor, inv: torch.Tensor,
+             scale: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """Kernel ``gn_apply``: (x - mean_c) * (inv_c * scale) + bias in f32,
+    in x's dtype and shape. mean, inv: (N, G) f32; scale, bias: (C,)
+    f32."""
+    groups = int(mean.shape[1]) if mean.dim() == 2 else 0
+    n, s, c, code = _check_gn(x, groups)
+    for t, what in ((mean, "mean"), (inv, "inv")):
+        _check_f32(t, (n, groups), x.device, what)
+    for t, what in ((scale, "scale"), (bias, "bias")):
+        _check_f32(t, (c,), x.device, what)
+    out = torch.empty_like(x)
+    fn = _kernel("gn_apply")
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), code, n, s, c, groups, mean.data_ptr(),
+                 inv.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+                 out.data_ptr(),
+                 torch.cuda.current_stream(x.device).cuda_stream)
+    _raise_on(err, "gn_apply")
+    launch_counts["gn_apply"] += 1
+    return out
+
+
+def gn_bwd_reduce(x: torch.Tensor, g: torch.Tensor, mean: torch.Tensor,
+                  inv: torch.Tensor, scale: torch.Tensor):
+    """Kernel ``gn_bwd_reduce``: (dscale (C,), dbias (C,), sdx (N, G),
+    sdxx (N, G)), all f32: dscale = sum over n, s of g * xhat, dbias = sum
+    of g, and per (sample, group) sdx = sum dxhat, sdxx = sum dxhat * xhat,
+    with xhat = (x - mean_c) * inv_c and dxhat = g * scale. Deterministic,
+    as :func:`gn_stats`."""
+    groups = int(mean.shape[1]) if mean.dim() == 2 else 0
+    n, s, c, code = _check_gn(x, groups, g)
+    for t, what in ((mean, "mean"), (inv, "inv")):
+        _check_f32(t, (n, groups), x.device, what)
+    _check_f32(scale, (c,), x.device, "scale")
+    nblocks, ws, tickets = _gn_workspace(n, s, c, code, n * 2 * c, x.device)
+    dscale = torch.empty(c, dtype=torch.float32, device=x.device)
+    dbias = torch.empty_like(dscale)
+    sdx = torch.empty((n, groups), dtype=torch.float32, device=x.device)
+    sdxx = torch.empty_like(sdx)
+    fn = _kernel("gn_bwd_reduce")
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), g.data_ptr(), code, n, s, c, groups,
+                 mean.data_ptr(), inv.data_ptr(), scale.data_ptr(), nblocks,
+                 ws.data_ptr(), ws[n * nblocks * 2 * c:].data_ptr(),
+                 tickets.data_ptr(), dscale.data_ptr(), dbias.data_ptr(),
+                 sdx.data_ptr(), sdxx.data_ptr(),
+                 torch.cuda.current_stream(x.device).cuda_stream)
+    _raise_on(err, "gn_bwd_reduce")
+    launch_counts["gn_bwd_reduce"] += 1
+    return dscale, dbias, sdx, sdxx
+
+
+def gn_bwd_dx(x: torch.Tensor, g: torch.Tensor, mean: torch.Tensor,
+              inv: torch.Tensor, scale: torch.Tensor, sdx: torch.Tensor,
+              sdxx: torch.Tensor) -> torch.Tensor:
+    """Kernel ``gn_bwd_dx``: dx = inv/D * (D * g * scale - sdx - xhat *
+    sdxx) in f32, in x's dtype and shape (D = S * C / G)."""
+    groups = int(mean.shape[1]) if mean.dim() == 2 else 0
+    n, s, c, code = _check_gn(x, groups, g)
+    for t, what in ((mean, "mean"), (inv, "inv"), (sdx, "sdx"),
+                    (sdxx, "sdxx")):
+        _check_f32(t, (n, groups), x.device, what)
+    _check_f32(scale, (c,), x.device, "scale")
+    dx = torch.empty_like(x)
+    fn = _kernel("gn_bwd_dx")
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), g.data_ptr(), code, n, s, c, groups,
+                 mean.data_ptr(), inv.data_ptr(), scale.data_ptr(),
+                 sdx.data_ptr(), sdxx.data_ptr(), dx.data_ptr(),
+                 torch.cuda.current_stream(x.device).cuda_stream)
+    _raise_on(err, "gn_bwd_dx")
+    launch_counts["gn_bwd_dx"] += 1
+    return dx

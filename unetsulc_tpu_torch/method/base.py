@@ -159,6 +159,7 @@ class SulciLabeller:
                 else torch.float32
             ),
             device=self.device,
+            fused_blocks=self.tpu.pallas_blocks,
         )
         kw.update(over)
         return UNet3D(**kw)

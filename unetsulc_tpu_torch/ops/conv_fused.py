@@ -345,7 +345,7 @@ class PackedWeight:
 
 
 @contextlib.contextmanager
-def _no_tf32():
+def no_tf32():
     """f32 matmuls and convolutions in full f32 (no TF32), the plain
     versions' arithmetic."""
     saved = torch.backends.cuda.matmul.allow_tf32
@@ -376,7 +376,7 @@ def fused_conv_block_plain(xs, affs, weight, bias, g: Geom):
     norm = [_normalized(x, aff, mask, dtype) for x, aff in zip(xs, affs)]
     xn = torch.cat(norm, -1).float().permute(3, 0, 1, 2)[None]
     w = weight.to(dtype).float()
-    with _no_tf32():
+    with no_tf32():
         out = F.conv3d(xn, w)  # valid conv over the ring-padded buffer
     out = torch.relu(out[0].permute(1, 2, 3, 0) + bias.float())
     y = F.pad(out.to(dtype), (0, 0, 1, 1, 1, 1, 1, 1))
@@ -394,7 +394,7 @@ def conv3x3x3_dx_plain(dconv, weight, cins, branch: int, aff, x, g: Geom):
     c0 = sum(int(c) for c in cins[:branch])
     wb = weight[:, c0:c0 + int(cins[branch])].to(dtype).float()
     d = unpad_from_geom(dconv, g)[0].float().permute(3, 0, 1, 2)[None]
-    with _no_tf32():
+    with no_tf32():
         dxn = F.conv_transpose3d(d, wb, padding=1)[0].permute(1, 2, 3, 0)
     xi = unpad_from_geom(x, g)[0].float()
     sums = torch.stack([(xi * dxn).sum((0, 1, 2)), dxn.sum((0, 1, 2))])
@@ -411,7 +411,7 @@ def conv3x3x3_wgrad_plain(x, aff, dconv, g: Geom):
     xn = _normalized(x, aff, interior_mask(g, x.device), x.dtype).float()
     d = unpad_from_geom(dconv, g)[0].float().reshape(g.voxels, -1)
     taps = []
-    with _no_tf32():
+    with no_tf32():
         for dx in range(3):
             for dy in range(3):
                 for dz in range(3):

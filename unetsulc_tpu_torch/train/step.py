@@ -11,11 +11,17 @@ with the model's f32 parameters as the master weights. The reference
 rebuilds its optimizer on DivideLr, which resets the momentum buffers
 (ref training.py:252): :meth:`TrainState.divide_lr`.
 
-A batch of more than one volume runs as one batch-1 forward and backward
-per volume (the JAX package's ``scan_batch=True``), each volume's loss
-being its NLL sum over the batch's total valid count, which the labels
-give before any forward: the gradients accumulate to the exact batch
-mean, and only one volume's activations live at a time.
+On the fused path a batch of more than one volume runs as one batch-1
+forward and backward per volume (the JAX package's ``scan_batch=True``),
+each volume's loss being its NLL sum over the batch's total valid count,
+which the labels give before any forward: the gradients accumulate to the
+exact batch mean, and only one volume's activations live at a time. A
+model that takes the non-fused path for a volume (``UNet3D.fused_eligible``)
+runs the batch in one forward, as the JAX step does when it does not scan.
+
+Dropout draws from a ``torch.Generator`` on the model's device, seeded
+from ``(0, state.step)`` (:func:`dropout_generator`). Its masks are not
+JAX's: the two frameworks' random bits differ.
 
 Eval parity quirk: the torch model applies its final activation in eval
 mode, so the reference's validation loss is CE(softmax(logits)) while the
@@ -24,8 +30,9 @@ train loss is CE(logits); :func:`make_eval_step` reproduces it.
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -48,6 +55,23 @@ def _match_labels(logits: torch.Tensor, labels: torch.Tensor,
         raise ValueError(f"labels {tuple(labels.shape)} do not match padded "
                          f"logits {tuple(logits.shape)}")
     return F.pad(labels[0], (1, 1, 1, 1, 1, 1), value=background)
+
+
+def _volumes(model, inputs: torch.Tensor) -> List[slice]:
+    """The batch slices that each take one forward: one per volume on the
+    fused path (batch 1 only), the whole batch otherwise."""
+    if model.fused_eligible(inputs[:1]):
+        return [slice(i, i + 1) for i in range(inputs.shape[0])]
+    return [slice(None)]
+
+
+def dropout_generator(seed: int, step: int, device) -> torch.Generator:
+    """The dropout stream of one train step: a generator on ``device``
+    seeded from (seed, step) (the JAX step folds ``state.step`` into its
+    dropout key the same way). The pair is hashed to 32 bits, all that the
+    CPU generator reads of a seed."""
+    mixed = np.random.SeedSequence([seed, step]).generate_state(1)[0]
+    return torch.Generator(device=device).manual_seed(int(mixed))
 
 
 def _sgd(params, lr: float, momentum: float) -> torch.optim.SGD:
@@ -108,10 +132,12 @@ def make_train_step(model: torch.nn.Module, num_classes: int,
                     momentum: float = 0.9, background: int = -1) -> Callable:
     """``step(state, inputs (N, X, Y, Z, Cin), labels (N, X, Y, Z)) ->
     (loss, counts (3, num_classes) int32)``, both on the device; the host
-    never waits inside. Forward (train mode, padded logits), masked
-    cross-entropy, backward through the fused ops' kernels for the
+    never waits inside. Forward (train mode; padded logits on the fused
+    path), masked cross-entropy, backward through the kernels for the
     trainable parameters only, then one SGD-with-momentum update of
-    ``state``'s parameters in place."""
+    ``state``'s parameters in place. With dropout, the step's masks come
+    from ``dropout_generator(0, state.step)``, as the JAX step folds the
+    step into ``jax.random.key(0)``."""
 
     def step(state: TrainState, inputs: torch.Tensor,
              labels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -125,13 +151,17 @@ def make_train_step(model: torch.nn.Module, num_classes: int,
         loss = torch.zeros((), dtype=torch.float32, device=inputs.device)
         counts = torch.zeros((3, num_classes), dtype=torch.int32,
                              device=inputs.device)
-        for i in range(inputs.shape[0]):
-            logits = model(inputs[i:i + 1], train=True, padded_output=True)
-            lbl = _match_labels(logits, labels[i:i + 1], background)
+        gen = (dropout_generator(0, state.step, inputs.device)
+               if model.dropout > 0 else None)
+        for v in _volumes(model, inputs):
+            logits = model(inputs[v], train=True, padded_output=True,
+                           dropout_generator=gen)
+            lbl = _match_labels(logits, labels[v], background)
             nll, _ = cross_entropy_sum(logits, lbl, background)
             part = nll / denom
             if part.requires_grad:
-                part.backward()
+                with model.precision():
+                    part.backward()
             loss = loss + part.detach()
             counts = counts + confusion_counts(
                 lbl, logits.detach().argmax(-1), num_classes, background)
@@ -145,8 +175,10 @@ def make_train_step(model: torch.nn.Module, num_classes: int,
 def make_eval_step(model: torch.nn.Module, num_classes: int,
                    background: int = -1, apply_activation: bool = True,
                    final_sigmoid: bool = False) -> Callable:
-    """``step(inputs, labels) -> (loss, counts)`` in eval mode, one volume
-    at a time: argmax and counts on the raw logits; with
+    """``step(inputs, labels) -> (loss, counts)`` in eval mode (dropout
+    off), one volume at a time on the fused path, the whole batch in one
+    forward on the non-fused path: argmax and counts on the raw logits;
+    with
     ``apply_activation`` the loss is the cross-entropy of the activated
     outputs (sigmoid or softmax per ``final_sigmoid``), the reference's
     eval-mode quirk (train/step.py:259-300 of the JAX package)."""
@@ -158,10 +190,10 @@ def make_eval_step(model: torch.nn.Module, num_classes: int,
         cnt = torch.zeros((), dtype=torch.int64, device=inputs.device)
         counts = torch.zeros((3, num_classes), dtype=torch.int32,
                              device=inputs.device)
-        for i in range(inputs.shape[0]):
-            logits = model(inputs[i:i + 1], train=False,
+        for v in _volumes(model, inputs):
+            logits = model(inputs[v], train=False,
                            apply_final_activation=False, padded_output=True)
-            lbl = _match_labels(logits, labels[i:i + 1], background)
+            lbl = _match_labels(logits, labels[v], background)
             counts = counts + confusion_counts(lbl, logits.argmax(-1),
                                                num_classes, background)
             if apply_activation:
@@ -179,7 +211,8 @@ def make_label_fn(model, final_sigmoid: bool = False) -> Callable:
     yscores (n, classes) f32)`` at the given voxels only, without
     autograd.
 
-    Gathers the padded logits at the voxel coordinates FIRST, then applies
+    Gathers the logits (padded on the fused path, 5-D on the non-fused
+    one) at the voxel coordinates FIRST, then applies
     softmax/sigmoid and argmax: the activation acts per voxel over
     channels, so gather-then-activate equals activate-then-gather, and only
     (n x classes) values are ever activated or fetched. Scores stay f32."""
@@ -187,8 +220,11 @@ def make_label_fn(model, final_sigmoid: bool = False) -> Callable:
     @torch.no_grad()
     def label(inputs: torch.Tensor, coords: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         logits = model(inputs, train=False, apply_final_activation=False,
-                       padded_output=True)  # (X+2, Y+2, Z+2, classes)
-        picked = logits[coords[0] + 1, coords[1] + 1, coords[2] + 1]
+                       padded_output=True)
+        if logits.dim() == 4:  # (X+2, Y+2, Z+2, classes)
+            picked = logits[coords[0] + 1, coords[1] + 1, coords[2] + 1]
+        else:  # (1, X, Y, Z, classes)
+            picked = logits[0][coords[0], coords[1], coords[2]]
         yscores = torch.sigmoid(picked) if final_sigmoid else torch.softmax(picked, -1)
         return torch.argmax(yscores, -1), yscores
 
