@@ -78,7 +78,28 @@ order (each phase aborts the script with a non-zero exit on failure):
    inputs) against its plain version and times it as phase 6 does,
    against one library call (``F.group_norm``;
    ``aten.native_group_norm_backward``) and its bound (bytes / 3.35 TB/s);
-16. prints the kernels' JSON line, the card line, and the final JSON line.
+16. holds kernels A, C and D in their spatial-parallel halo modes against
+   their plain versions at the flagship's slab shapes: level 0 at space 2
+   (48 x 96 x 96 slabs; 32->64, 32->32 and the decoder's 64+128->64; an
+   edge shard's valid pattern on each side and an interior one) and the
+   slab+E layout of level 1 at space 4 (13 planes of 49 x 49, odd Xp 15,
+   valid_out on the last and an inner shard), at phases 3 and 8's bars;
+17. drives the spatial-parallel training step
+   (``parallel.make_mesh(space=n, devices=[cuda] * n)``,
+   ``make_train_step_sp``) of the flagship on phase 9's batch at space 2
+   and 4, all shards on this one card, one after another (so its time is
+   not a scaling figure): the step against the single-device step from
+   the same state at phase 9's bars; launches per step (counts zeroed just
+   before) against the counts PERF.md predicts; 3 warm-up and 20 timed
+   steps; a falling loss; peak memory beside the single-device step's,
+   measured the same way from the same state; a profile of one step; one
+   ``make_eval_step_sp`` call;
+18. holds every halo-mode launch of one space-2 sp step (recorded inputs)
+   against its plain version and times it against the same launch without
+   halo, its plain version, one library call on the halo-filled slab
+   (cuDNN ``conv3d`` with padding (0, 1, 1); ``aten.convolution_backward``
+   with that padding) and its bound;
+19. prints the kernels' JSON line, the card line, and the final JSON line.
 
 It exits non-zero without a result when CUDA is not available. Scratch
 files go under ``build/chip_smoke/``.
@@ -536,10 +557,11 @@ def plain_fns():
     from unetsulc_tpu_torch.ops import groupnorm as gn
 
     return {
-        "conv3x3x3_fwd": lambda xs, affs, w, b, g, packed=None:
-            cf.fused_conv_block_plain(xs, affs, w, b, g),
-        "conv3x3x3_dx": lambda dconv, w, cins, br, aff, x, g, packed=None:
-            cf.conv3x3x3_dx_plain(dconv, w, cins, br, aff, x, g),
+        "conv3x3x3_fwd": lambda xs, affs, w, b, g, packed=None, **halo:
+            cf.fused_conv_block_plain(xs, affs, w, b, g, **halo),
+        "conv3x3x3_dx": lambda dconv, w, cins, br, aff, x, g, packed=None,
+        halo=None, valid=None:
+            cf.conv3x3x3_dx_plain(dconv, w, cins, br, aff, x, g, halo, valid),
         "conv3x3x3_wgrad": cf.conv3x3x3_wgrad_plain,
         "max_pool_buf_fwd": cf.max_pool_buf_plain,
         "max_pool_buf_bwd": cf.max_pool_buf_bwd_plain,
@@ -896,6 +918,40 @@ def kernel_class(key):
     return "plain"
 
 
+def profile_step(run, label, top):
+    """Where one step's time goes: ``run()`` under the profiler, device time
+    by kernel class (the port's kernels by letter or name, everything else
+    "plain"), the device's busy share of the host-clock time, and the
+    ``top`` largest plain entries."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        run()
+        sync()
+        prof_ms = (time.perf_counter() - t) * 1e3
+    by_class, plain = {}, []
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            k = kernel_class(e.key)
+            ms = e.self_device_time_total / 1e3
+            by_class[k] = by_class.get(k, 0.0) + ms
+            if k == "plain":
+                plain.append((ms, e.count, e.key))
+    busy = sum(by_class.values())
+    if not busy:
+        print("  device busy share: not measured (the profiler saw no device "
+              "time)", flush=True)
+        return
+    print(f"  {label} under the profiler: {prof_ms:.2f} ms host clock, device "
+          f"busy {busy:.2f} ms = {busy / prof_ms * 100:.1f}%; "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in sorted(by_class.items())),
+          flush=True)
+    for ms, count, key in sorted(plain, reverse=True)[:top]:
+        print(f"    {ms:9.3f} ms {count:4d}x  {key[:90]}", flush=True)
+
+
 def step_against_plain(model, step, x, labels, where, f32_model=None):
     """One step from the model's current state through the kernels
     (twice: their spread is printed) and through the plain versions on the
@@ -951,9 +1007,6 @@ def step_against_plain(model, step, x, labels, where, f32_model=None):
 
 def phase_train(dev):
     """The flagship training step end to end (see the module docstring)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from unetsulc_tpu_torch import kernels
     from unetsulc_tpu_torch.models.unet3d import UNet3D
     from unetsulc_tpu_torch.train.step import TrainState, make_train_step
@@ -1022,31 +1075,7 @@ def phase_train(dev):
     trained = step_against_plain(model, step, x, labels,
                                  f"state after {TRAINED_STEPS} steps")
 
-    # where one step's time goes
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        step(state, x, labels)
-        sync()
-        prof_ms = (time.perf_counter() - t) * 1e3
-    by_class, plain = {}, []
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
-            k = kernel_class(e.key)
-            ms = e.self_device_time_total / 1e3
-            by_class[k] = by_class.get(k, 0.0) + ms
-            if k == "plain":
-                plain.append((ms, e.count, e.key))
-    busy = sum(by_class.values())
-    if busy:
-        print(f"  one step under the profiler: {prof_ms:.2f} ms host clock, "
-              f"device busy {busy:.2f} ms = {busy / prof_ms * 100:.1f}%; "
-              + ", ".join(f"{k} {v:.2f} ms" for k, v in sorted(by_class.items())),
-              flush=True)
-        for ms, count, key in sorted(plain, reverse=True)[:10]:
-            print(f"    {ms:9.3f} ms {count:4d}x  {key[:90]}", flush=True)
-    else:
-        print("  device busy share: not measured (the profiler saw no device "
-              "time)", flush=True)
+    profile_step(lambda: step(state, x, labels), "one step", 10)
 
     # a head-only step: no backward kernel, the trunk bit-identical
     fstate = TrainState.create(model, lr=TRAIN_LR,
@@ -1096,7 +1125,7 @@ def phase_backward_timing(model, step, x, labels):
                 shape = f"{cins[br]}<-{int(w.shape[0])} @{g.X}x{g.Y}x{g.Z}"
                 err = check_dx(kern(), plain(), shape)
             elif name == "conv3x3x3_wgrad":
-                xb, aff, dconv, g = args
+                xb, aff, dconv, g = args[:4]
                 ci, co = int(xb.shape[3]), int(dconv.shape[3])
                 lib = conv_bwd_library_call(
                     xb, aff, dconv,
@@ -1316,9 +1345,6 @@ def phase_nonfused_train(dev):
     bars; launches per step; 3 warm-up and 20 timed steps; a falling loss;
     peak memory; a profile of one step; one step with dropout 0.1 at batch
     2."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from unetsulc_tpu_torch import kernels
     from unetsulc_tpu_torch.train.step import TrainState, make_train_step
 
@@ -1355,30 +1381,7 @@ def phase_nonfused_train(dev):
     check(bool(torch.isfinite(curve).all()), "non-finite loss")
     check(curve[-1].item() < curve[0].item(), "non-fused loss did not fall")
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        step(state, x, labels)
-        sync()
-        prof_ms = (time.perf_counter() - t) * 1e3
-    by_class, plain = {}, []
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
-            k = kernel_class(e.key)
-            ms = e.self_device_time_total / 1e3
-            by_class[k] = by_class.get(k, 0.0) + ms
-            if k == "plain":
-                plain.append((ms, e.count, e.key))
-    busy = sum(by_class.values())
-    if busy:
-        print(f"  one non-fused step under the profiler: {prof_ms:.2f} ms host "
-              f"clock, device busy {busy:.2f} ms = {busy / prof_ms * 100:.1f}%; "
-              + ", ".join(f"{k} {v:.2f} ms" for k, v in sorted(by_class.items())),
-              flush=True)
-        for ms, count, key in sorted(plain, reverse=True)[:15]:
-            print(f"    {ms:9.3f} ms {count:4d}x  {key[:90]}", flush=True)
-    else:
-        print("  device busy share: not measured (the profiler saw no device "
-              "time)", flush=True)
+    profile_step(lambda: step(state, x, labels), "one non-fused step", 15)
 
     # dropout 0.1 at batch 2: one batched forward, a finite loss
     dmodel = nonfused_model(dev, dropout=0.1)
@@ -1525,6 +1528,399 @@ def phase_gn_timing(model, step, x, labels):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the spatial-parallel path: halo modes of kernels A, C, D (phases 16-18)
+# ---------------------------------------------------------------------------
+
+HALO_KERNELS = ["conv3x3x3_fwd_halo", "conv3x3x3_dx_halo",
+                "conv3x3x3_wgrad_halo"]
+SPACES = (2, 4)
+# launches per sp train step of the flagship on bench.py's batch, as PERF.md
+# §6 predicts them from the partition: slabs of S = 48 (space 2) and
+# 24 (space 4) planes both shard levels 0-2, so only encoder 3 (2 convs, its
+# pool) runs unsharded, on the mesh's home device
+SP_LAUNCHES = {
+    n: dict(conv3x3x3_fwd_halo=11 * n, conv3x3x3_dx_halo=14 * n,
+            conv3x3x3_wgrad_halo=14 * n, conv3x3x3_fwd=2, conv3x3x3_dx=2,
+            conv3x3x3_wgrad=2, max_pool_buf_fwd=1, max_pool_buf_bwd=1)
+    for n in SPACES
+}
+
+
+def halo_planes(g, c, present, gen, dev):
+    """Two post-ReLU-like (Yp, Zp, c) bf16 neighbour planes with a zero
+    (y, z) ring; None where ``present`` says the ring plane is invalid."""
+    out = []
+    for ok in present:
+        v = torch.relu(torch.randn((g.Y, g.Z, c), generator=gen, device=dev))
+        out.append(F.pad(v, (0, 0, 1, 1, 1, 1)).to(torch.bfloat16).contiguous()
+                   if ok else None)
+    return tuple(out)
+
+
+def check_halo_dx(out_k, out_p, what):
+    """Kernel C's halo mode against its plain version: dx, the two halo
+    planes' dx and the sums at kernel C's bars, the ring planes of dx 0."""
+    (dk, sk, lk, hk), (dp, sp_, lp, hp) = out_k, out_p
+    err = max(check_grad(a, b, 2 ** -7, f"kernel C halo {n} ({what})")
+              for a, b, n in ((dk, dp, "dx"), (lk, lp, "dlo"), (hk, hp, "dhi")))
+    check_grad(sk, sp_, 1e-3, f"kernel C halo sums ({what})")
+    check(not (dk[0].any() or dk[-1].any()),
+          f"kernel C halo: dx ring planes not zero ({what})")
+    return err
+
+
+def halo_check_cases(s0=48, p1=12, yz0=96, yz1=49):
+    """Phase 16's launches: (name, slab extent, input channels, output
+    channels, valid_in, valid_out). Level 0 at space 2: S = 48 planes of 96
+    x 96, an edge shard on either side and an interior one; level 1 in the
+    slab+E layout at space 4: P = 12 (X = 13, Xp = 15) planes of 49 x 49,
+    the last shard and an inner one."""
+    return [
+        ("enc0.conv2 32->64, left edge", (s0, yz0, yz0), [32], 64,
+         [0] + [1] * (s0 + 1), None),
+        ("32->32, right edge", (s0, yz0, yz0), [32], 32, [1] * (s0 + 1) + [0],
+         None),
+        ("dec2.conv1 64+128->64, interior", (s0, yz0, yz0), [64, 128], 64,
+         [1] * (s0 + 2), None),
+        ("enc1.conv2 64->128, slab+E last shard", (p1 + 1, yz1, yz1), [64],
+         128, [1] * (p1 + 2) + [0], [0] + [1] * (p1 + 1) + [0]),
+        ("dec1.conv1 128+256->128, slab+E inner shard", (p1 + 1, yz1, yz1),
+         [128, 256], 128, [1] * (p1 + 3), [0] + [1] * p1 + [0, 0]),
+    ]
+
+
+@torch.no_grad()
+def phase_halo_checks(dev, cases=None):
+    """Kernels A, C and D in halo mode against their plain versions at the
+    flagship's slab shapes (:func:`halo_check_cases`). Bars: phase 3's for
+    A, phase 8's for C and D, and the planes valid_out drops exactly 0.
+    Returns each mode's max |error|."""
+    from unetsulc_tpu_torch.ops import conv_fused as cf
+
+    gen = torch.Generator(device=dev).manual_seed(16)
+    worst = {k: 0.0 for k in HALO_KERNELS}
+    for name, ext, cins, cout, vin, vout in cases or halo_check_cases():
+        g = cf.make_geom(*ext)
+        xs = [rand_buffer(g, c, gen, dev) for c in cins]
+        halos = [halo_planes(g, c, (vin[0], vin[-1]), gen, dev) for c in cins]
+        affs = [rand_affine(c, gen, dev) for c in cins]
+        w = torch.randn((cout, sum(cins), 3, 3, 3), generator=gen,
+                        device=dev) * (27 * sum(cins)) ** -0.5
+        bias = 0.1 * torch.randn(cout, generator=gen, device=dev)
+        valid = torch.tensor(vin, dtype=torch.float32, device=dev)
+        vo = None if vout is None else torch.tensor(vout, dtype=torch.float32,
+                                                    device=dev)
+        kw = dict(halos=halos, valids=[valid] * len(cins), valid_out=vo)
+        y, s = cf.conv_fwd(xs, affs, w, bias, g, **kw)
+        yp, sp_ = cf.fused_conv_block_plain(xs, affs, w, bias, g, **kw)
+        sync()
+        torch.testing.assert_close(y.float(), yp.float(), rtol=2 ** -7,
+                                   atol=1e-3)
+        torch.testing.assert_close(s, sp_, rtol=1e-3, atol=1e-3)
+        check(ring_is_zero(y), f"kernel A halo ring not zero ({name})")
+        if vout is not None:
+            check(not y[vo == 0].any(), f"kernel A halo wrote a dropped plane "
+                  f"({name})")
+        e_a = (y.float() - yp.float()).abs().max().item()
+        worst["conv3x3x3_fwd_halo"] = max(worst["conv3x3x3_fwd_halo"], e_a)
+        dconv = rand_grad(g, cout, gen, dev)
+        for b in range(len(cins)):
+            what = f"{name} branch {b}"
+            out_k = cf.conv_dx(dconv, w, cins, b, affs[b], xs[b], g, None,
+                               halos[b], valid)
+            out_p = cf.conv3x3x3_dx_plain(dconv, w, cins, b, affs[b], xs[b], g,
+                                          halos[b], valid)
+            wk = cf.conv_wgrad(xs[b], affs[b], dconv, g, halos[b], valid)
+            wp = cf.conv3x3x3_wgrad_plain(xs[b], affs[b], dconv, g, halos[b],
+                                          valid)
+            sync()
+            e_c = check_halo_dx(out_k, out_p, what)
+            e_d = check_grad(wk, wp, 1e-3, f"kernel D halo ({what})")
+            worst["conv3x3x3_dx_halo"] = max(worst["conv3x3x3_dx_halo"], e_c)
+            worst["conv3x3x3_wgrad_halo"] = max(worst["conv3x3x3_wgrad_halo"],
+                                                e_d)
+        print(f"  {name} @{'x'.join(map(str, ext))}: A max|dy| {e_a:.3g}; "
+              f"C {e_c:.3g}; D {e_d:.3g} (last branch)", flush=True)
+    return worst
+
+
+def sp_mesh(n):
+    """n shards, all on the one card."""
+    from unetsulc_tpu_torch.parallel import make_mesh
+
+    return make_mesh(space=n, devices=[torch.device("cuda")] * n)
+
+
+def step_grads(model, step_fn, args):
+    """(loss, counts, gradients) of one step at lr 0 (the state stays)."""
+    from unetsulc_tpu_torch.train.step import TrainState
+
+    loss, counts = step_fn(TrainState.create(model, lr=0.0), *args)
+    sync()
+    return loss.item(), counts, {n: p.grad.detach().clone()
+                                 for n, p in model.named_parameters()}
+
+
+def phase_sp_train(dev, single_peak_gb):
+    """The spatial-parallel train step of the flagship (seed 0) on phase
+    9's batch at space 2 and 4, all shards on this card: against the
+    single-device fused step from the same state at phase 9's bars; halo
+    launches per step against SP_LAUNCHES; 3 warm-up and 20 timed steps; a
+    falling loss; peak memory beside the single-device step's; one sp eval
+    step. Returns per space the launches and numbers, and the space-2
+    model, step and slabs for phase 18."""
+    from unetsulc_tpu_torch import kernels
+    from unetsulc_tpu_torch.models.unet3d import UNet3D
+    from unetsulc_tpu_torch.parallel import shard_x
+    from unetsulc_tpu_torch.train.step import (TrainState, make_eval_step_sp,
+                                               make_train_step,
+                                               make_train_step_sp)
+
+    x, labels = make_batch(dev)
+    out, keep = {}, None
+    for n in SPACES:
+        model = UNet3D(in_channels=1, out_channels=CLASSES,
+                       init_channel_number=64, device=dev, seed=0)
+        mesh = sp_mesh(n)
+        print(f"  space {n}: mesh devices {[str(d) for d in mesh.devices]}: "
+              f"the {n} shards run one after another on this one card, so "
+              "the step time is not a scaling figure", flush=True)
+        xs, ls = shard_x(x, mesh), shard_x(labels, mesh)
+        step = make_train_step_sp(model, CLASSES, mesh, momentum=0.9)
+        single = make_train_step(model, CLASSES, momentum=0.9)
+        l1, c1, g1 = step_grads(model, single, (x, labels))
+        _, _, g1b = step_grads(model, single, (x, labels))
+        l2, c2, g2 = step_grads(model, step, (xs, ls))
+        print(f"  space {n}: loss {l2:.6f} vs single-device {l1:.6f} (rel "
+              f"{abs(l2 - l1) / abs(l1):.2e}); confusion counts equal: "
+              f"{bool(torch.equal(c1, c2))}", flush=True)
+        d = param_distances(g2, g1)
+        gcos = global_cosine(g2, g1)
+        for label, dd, gc in (("single-device step vs itself",
+                               param_distances(g1b, g1), global_cosine(g1b, g1)),
+                              ("sp step vs single-device step", d, gcos)):
+            c, cn, e, en = worst(dd)
+            print(f"    {label}: all-parameter cosine {gc:.6f}; worst cosine "
+                  f"{1.0 - c:.6f} ({cn}); worst max|dg| / max|g| {e:.4f} "
+                  f"({en})", flush=True)
+        c, _, e, _ = worst(d)
+        check(abs(l2 - l1) <= LOSS_RTOL * abs(l1),
+              f"space {n}: loss differs from the single-device step")
+        check(gcos >= GLOBAL_COS, f"space {n}: all-parameter cosine {gcos}")
+        check(1.0 - c >= GRAD_COS, f"space {n}: gradient cosine {1.0 - c}")
+        check(e <= GRAD_ERR, f"space {n}: gradient error {e}")
+
+        state = TrainState.create(model, lr=TRAIN_LR)
+        kernels.reset_launch_counts()
+        losses = [step(state, xs, ls)[0]]
+        sync()
+        launches = dict(kernels.launch_counts)
+        print(f"  space {n}: launches per sp train step: {launches}",
+              flush=True)
+        want = {k: 0 for k in launches}
+        want.update(SP_LAUNCHES[n])
+        check(launches == want, f"space {n}: launches {launches}, predicted "
+              f"{want}")
+        for _ in range(WARMUP - 1):
+            losses.append(step(state, xs, ls)[0])
+        losses[-1].item()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        for _ in range(STEPS):
+            losses.append(step(state, xs, ls)[0])
+        curve = torch.stack(losses).cpu()
+        dt = time.perf_counter() - t
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        held_gb = torch.cuda.memory_allocated() / 1e9
+        step_ms = dt / STEPS * 1e3
+        # the single-device step's peak measured the same way, from the
+        # same state and with the same allocations held (earlier phases
+        # leave some: phase 9's number is not like with like)
+        torch.cuda.reset_peak_memory_stats()
+        single(state, x, labels)
+        sync()
+        here_gb = torch.cuda.max_memory_allocated() / 1e9
+        print(f"sp train step 96^3 flagship bf16, space {n} on one card: "
+              f"{step_ms:.2f} ms/step, peak device memory {peak_gb:.2f} GB "
+              f"against {here_gb:.2f} GB for the single-device step measured "
+              f"here ({held_gb:.2f} GB allocated between steps; phase 9's "
+              f"single-device peak {single_peak_gb:.2f} GB; {STEPS} steps "
+              f"after {WARMUP} warm-up)", flush=True)
+        print("  loss by step: " + ", ".join(f"{v:.4f}" for v in curve.tolist()),
+              flush=True)
+        check(bool(torch.isfinite(curve).all()), f"space {n}: non-finite loss")
+        check(curve[-1].item() < curve[0].item(),
+              f"space {n}: loss did not fall")
+        profile_step(lambda: step(state, xs, ls), f"one space-{n} sp step", 12)
+        el, ec = make_eval_step_sp(model, CLASSES, mesh)(xs, ls)
+        sync()
+        n_valid = int((labels != -1).sum().item())
+        print(f"  space {n}: sp eval step loss {el.item():.4f}, "
+              f"{int(ec[0].sum() + ec[2].sum())} labelled voxels counted "
+              f"({n_valid} labelled)", flush=True)
+        check(bool(torch.isfinite(el)), f"space {n}: non-finite eval loss")
+        check(int(ec[0].sum() + ec[2].sum()) == n_valid,
+              f"space {n}: eval counts do not cover the labelled voxels")
+        out[n] = dict(launches=launches, step_ms=step_ms, peak_gb=peak_gb,
+                      single_peak_gb=here_gb, held_gb=held_gb,
+                      loss_first=curve[0].item(), loss_last=curve[-1].item(),
+                      eval_loss=el.item(), loss_rel=abs(l2 - l1) / abs(l1),
+                      global_cos=gcos, cos=1.0 - c, err=e)
+        if n == SPACES[0]:
+            keep = (model, step, xs, ls)
+        else:
+            del model, step
+    return out, keep
+
+
+def halo_filled_normalized(x, aff, halo, valid, g):
+    """The (1, C, Xp, Y, Z) channels-last view of the halo-filled input,
+    normalized under its validity: what a library conv reads."""
+    from unetsulc_tpu_torch.ops import conv_fused as cf
+
+    v = torch.where(cf.halo_mask(g, valid),
+                    cf.apply_affine(cf.halo_filled(x, halo), aff), 0)
+    return v[:, 1:1 + g.Y, 1:1 + g.Z].permute(3, 0, 1, 2)[None]
+
+
+def halo_bound(kind, xs, cout, g, planes):
+    """The least time of one halo-mode launch: ``planes`` output planes
+    that the run needs (kernel A: those valid_out keeps; C: the valid ones
+    of the X+2; D: the X interior ones), 2 x voxels x 27 x Cin x Cout
+    operations at the bf16 peak against the bytes read once (inputs'
+    interiors and halo planes) and written once (kernel C: dx with its ring
+    and both halo planes' dx; D: the f32 dW)."""
+    cin = sum(int(x.shape[3]) for x in xs)
+    vox_in = (g.X + 2) * g.Y * g.Z
+    vox_out = planes * g.Y * g.Z
+    plane_p = g.Yp * g.Zp
+    flops = 2.0 * vox_out * 27 * cin * cout
+    w_bytes = 2.0 * 27 * cin * cout
+    if kind == "conv3x3x3_fwd_halo":
+        nbytes = 2.0 * (vox_in * cin + g.Xp * plane_p * cout) + w_bytes
+    elif kind == "conv3x3x3_dx_halo":
+        nbytes = 2.0 * (g.X * g.Y * g.Z * cout + vox_in * cin
+                        + (g.Xp + 2) * plane_p * cin) + w_bytes
+    else:
+        nbytes = 2.0 * (vox_in * cin + g.X * g.Y * g.Z * cout) \
+            + 4.0 * 27 * cin * cout
+    return max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
+
+
+def timed_halo_row(name, shape, kern, nohalo, plain, lib, bound, err):
+    """One halo launch's row: kernel, the same launch without halo, the
+    plain version and the library call, each captured as a CUDA graph and
+    timed in turns (plain, kernel, no-halo, library, kernel; three times),
+    medians in ms."""
+    graphs = [capture(f) for f in (plain, kern, nohalo, lib)]
+    sync()
+    ms = {k: [] for k in ("plain", "kern", "nohalo", "lib")}
+    for _ in range(3):
+        for key, gr in zip(("plain", "kern", "nohalo", "lib", "kern"),
+                           graphs + [graphs[1]]):
+            ms[key].append(event_ms(gr, REPS))
+    del graphs
+    row = dict(shape=shape, ms=statistics.median(ms["kern"]),
+               nohalo_ms=statistics.median(ms["nohalo"]),
+               plain_ms=statistics.median(ms["plain"]),
+               library_ms=statistics.median(ms["lib"]), bound_ms=bound,
+               max_abs_err=err)
+    print(f"  {name} {shape}: kernel {row['ms']:.4f} ms, without halo "
+          f"{row['nohalo_ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+          f"library {row['library_ms']:.4f} ms, bound {bound:.4f} ms, "
+          f"max|err| {err:.3g}", flush=True)
+    return row
+
+
+def phase_halo_timing(model, step, xs, ls):
+    """Every halo-mode launch of one space-2 sp training step (recorded at
+    lr 0), held to its plain version at phase 16's bars and timed against
+    the same launch without halo (which reads the buffer's own zero ring
+    planes), its plain version, one library call on the halo-filled slab
+    (cuDNN conv3d with padding (0, 1, 1); ``aten.convolution_backward``
+    with that padding for dx and for dW; bf16, channels-last) and its
+    bound."""
+    from unetsulc_tpu_torch.ops import conv_fused as cf
+    from unetsulc_tpu_torch.train.step import TrainState
+
+    names = ["conv3x3x3_fwd", "conv3x3x3_dx", "conv3x3x3_wgrad"]
+    calls = []
+    with recording(calls, names):
+        step(TrainState.create(model, lr=0.0), xs, ls)
+    sync()
+    plain_of = plain_fns()
+    rows = {k: [] for k in HALO_KERNELS}
+    with torch.no_grad():
+        for name, args, kw in calls:
+            if name == "conv3x3x3_fwd":
+                if kw.get("valids") is None:
+                    continue
+                xs_, affs, w, b, g, packed = args[:6]
+                kern = lambda: cf.conv_fwd(*args, **kw)  # noqa: E731
+                nohalo = lambda: cf.conv_fwd(xs_, affs, w, b, g, packed)  # noqa: E731
+                plain = lambda: plain_of[name](*args, **kw)  # noqa: E731
+                xn = torch.cat([halo_filled_normalized(x, a, h, v, g)
+                                for x, a, h, v in zip(xs_, affs, kw["halos"],
+                                                      kw["valids"])], 1)
+                wl = w.to(torch.bfloat16).contiguous(
+                    memory_format=torch.channels_last_3d)
+                bl = b.to(torch.bfloat16)
+                lib = lambda: F.conv3d(xn, wl, bl, padding=(0, 1, 1))  # noqa: E731
+                vo = kw["valid_out"]
+                planes = g.X if vo is None else int(vo.sum().item())
+                kind, cout = "conv3x3x3_fwd_halo", int(w.shape[0])
+                bound = halo_bound(kind, xs_, cout, g, planes)
+                shape = (f"{'+'.join(str(int(v.shape[3])) for v in xs_)}->"
+                         f"{cout} @{g.X}x{g.Y}x{g.Z}")
+                (yk, sk), (yp, sp_) = kern(), plain()
+                sync()
+                torch.testing.assert_close(yk.float(), yp.float(),
+                                           rtol=2 ** -7, atol=1e-3)
+                torch.testing.assert_close(sk, sp_, rtol=1e-3, atol=1e-3)
+                err = (yk.float() - yp.float()).abs().max().item()
+                del yk, sk, yp, sp_
+            else:
+                n_pos = 10 if name == "conv3x3x3_dx" else 6
+                if len(args) < n_pos or args[n_pos - 1] is None:
+                    continue
+                kern = lambda: dispatcher(name)(*args)  # noqa: E731
+                nohalo = lambda: dispatcher(name)(*args[:n_pos - 2])  # noqa: E731
+                plain = lambda: plain_of[name](*args)  # noqa: E731
+                if name == "conv3x3x3_dx":
+                    dconv, w, cins, br, aff, xb, g, _, halo, valid = args
+                    c0 = sum(cins[:br])
+                    wb = w[:, c0:c0 + cins[br]]
+                    ci, co, mask = cins[br], int(w.shape[0]), [True, False, False]
+                    kind = "conv3x3x3_dx_halo"
+                    planes = int(valid.sum().item())
+                else:
+                    xb, aff, dconv, g, halo, valid = args
+                    ci, co = int(xb.shape[3]), int(dconv.shape[3])
+                    wb = torch.zeros((co, ci, 3, 3, 3), device=xb.device)
+                    mask, kind, planes = [False, True, False], \
+                        "conv3x3x3_wgrad_halo", g.X
+                inp = halo_filled_normalized(xb, aff, halo, valid, g)
+                go = cf.unpad_from_geom(dconv, g)[0].contiguous().permute(
+                    3, 0, 1, 2)[None]
+                wl = wb.to(torch.bfloat16).contiguous(
+                    memory_format=torch.channels_last_3d)
+                lib = lambda: torch.ops.aten.convolution_backward(  # noqa: E731
+                    go, inp, wl, None, [1, 1, 1], [0, 1, 1], [1, 1, 1], False,
+                    [0, 0, 0], 1, mask)
+                bound = halo_bound(kind, [xb], co, g, planes)
+                shape = f"{ci}x{co} @{g.X}x{g.Y}x{g.Z}"
+                if name == "conv3x3x3_dx":
+                    err = check_halo_dx(kern(), plain(), shape)
+                else:
+                    err = check_grad(kern(), plain(), 1e-3,
+                                     f"kernel D halo {shape}")
+            sync()
+            rows[kind].append(timed_halo_row(kind, shape, kern, nohalo, plain,
+                                             lib, bound, err))
+    return rows
+
+
 def main():
     if not torch.cuda.is_available():
         print("CUDA is not available: chip_smoke.py needs an NVIDIA GPU",
@@ -1571,9 +1967,20 @@ def main():
           "step", flush=True)
     rows.update(phase_gn_timing(nmodel, nstep, xb, lb))
     del nmodel, nstep
+    print("phase 16: kernels A, C, D in halo mode against their plain "
+          "versions", flush=True)
+    err_halo = phase_halo_checks(dev)
+    print("phase 17: the spatial-parallel training step (space 2 and 4, "
+          "one card)", flush=True)
+    sp_runs, (smodel, sstep, sxs, sls) = phase_sp_train(dev, train["peak_gb"])
+    print("phase 18: halo-mode kernel times over one space-2 sp training "
+          "step", flush=True)
+    rows.update(phase_halo_timing(smodel, sstep, sxs, sls))
+    del smodel, sstep
 
     gn_src = "unetsulc_tpu_torch/csrc/group_norm.cu"
     gn_cover = "one 96^3 non-fused flagship training step"
+    sp_cover = "one 96^3 flagship sp training step, space 2, one card"
     meta = {
         "conv3x3x3_fwd": ("unetsulc_tpu_torch/csrc/conv3x3x3_fwd.cu",
                           "unetsulc_tpu/ops/conv_pallas.py:370", "operations",
@@ -1601,6 +2008,16 @@ def main():
                           gn_cover),
         "gn_bwd_dx": (gn_src, "unetsulc_tpu/ops/attic/"
                       "groupnorm_pallas_chunked.py:183", "bytes", gn_cover),
+        # row 6: the halo / valid_in / valid_out / edge_outputs modes
+        "conv3x3x3_fwd_halo": ("unetsulc_tpu_torch/csrc/conv3x3x3_fwd.cu",
+                               "unetsulc_tpu/ops/conv_pallas.py:370",
+                               "operations", sp_cover),
+        "conv3x3x3_dx_halo": ("unetsulc_tpu_torch/csrc/conv3x3x3_fwd.cu",
+                              "unetsulc_tpu/ops/conv_pallas.py:370",
+                              "operations", sp_cover),
+        "conv3x3x3_wgrad_halo": ("unetsulc_tpu_torch/csrc/conv3x3x3_wgrad.cu",
+                                 "unetsulc_tpu/ops/conv_pallas.py:1090",
+                                 "operations", sp_cover),
     }
     # launches on the main paths: A and B on the fused labelling path
     # (phase 5), C, D and E per fused training step (phase 9), gn_stats and
@@ -1612,20 +2029,29 @@ def main():
                       ("conv3x3x3_dx", "conv3x3x3_wgrad", "max_pool_buf_bwd")},
                    **{k: nf_counts[k] for k in ("gn_stats", "gn_apply")},
                    **{k: nf_launches[k] for k in
-                      ("gn_bwd_reduce", "gn_bwd_dx")}}
+                      ("gn_bwd_reduce", "gn_bwd_dx")},
+                   **{k: sp_runs[SPACES[0]]["launches"][k]
+                      for k in HALO_KERNELS}}
     line = []
     for name, (src, replaces, bound_by, cover) in meta.items():
         rs = rows[name]
         err = max(r["max_abs_err"] for r in rs)
         if name == "conv3x3x3_fwd":
             err = max(err, err_a)
-        err = max(err, err_bwd.get(name, 0.0), err_gn.get(name, 0.0))
+        err = max(err, err_bwd.get(name, 0.0), err_gn.get(name, 0.0),
+                  err_halo.get(name, 0.0))
+        per_step = (nf_launches if name in GN_KERNELS else
+                    sp_runs[SPACES[0]]["launches"] if name in HALO_KERNELS
+                    else train_launches)
+        extra = {}
+        if name in HALO_KERNELS:
+            extra = dict(launches_space4=sp_runs[4]["launches"][name],
+                         nohalo_ms=sum(r["nohalo_ms"] for r in rs))
         line.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces,
             "launches": main_counts[name],
-            "launches_per_train_step": (nf_launches if name in GN_KERNELS
-                                        else train_launches)[name],
+            "launches_per_train_step": per_step[name], **extra,
             "max_abs_err": err,
             "ms": sum(r["ms"] for r in rs),
             "plain_ms": sum(r["plain_ms"] for r in rs),
@@ -1638,8 +2064,11 @@ def main():
     print(f"label latency {label_ms:.1f} ms/graph, forward {fwd_ms:.2f} ms, "
           f"train step {train['step_ms']:.2f} ms; non-fused: label latency "
           f"{nf_label_ms:.1f} ms/graph, forward {nf_fwd_ms:.2f} ms, train "
-          f"step {nf_train['step_ms']:.2f} ms; total script "
-          f"{time.time() - t0:.1f} s", flush=True)
+          f"step {nf_train['step_ms']:.2f} ms; sp train step "
+          + ", ".join(f"space {n} {r['step_ms']:.2f} ms ({r['peak_gb']:.2f} GB "
+                      f"peak, single-device step {r['single_peak_gb']:.2f} GB "
+                      "measured alike)" for n, r in sp_runs.items())
+          + f"; total script {time.time() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": line}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

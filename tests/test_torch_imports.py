@@ -21,21 +21,38 @@ FORBIDDEN = re.compile(
 )
 
 
+# the spatial-parallel modules, held to the rule by name as well
+PARALLEL = ["unetsulc_tpu_torch.parallel", "unetsulc_tpu_torch.parallel.mesh",
+            "unetsulc_tpu_torch.parallel.sp_fused"]
+
+
 def test_port_imports_without_jax():
-    """Importing every module of the port loads neither jax/flax/optax nor
-    any module of ``unetsulc_tpu``."""
+    """Importing every module of the port, the ``parallel`` package among
+    them, loads neither jax/flax/optax nor any module of
+    ``unetsulc_tpu``."""
     code = (
         "import importlib, json, pkgutil, sys\n"
         "import unetsulc_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
-        "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0]\n"
-        "    in ('jax', 'flax', 'optax', 'unetsulc_tpu'))))\n"
+        "print(json.dumps([sorted(m for m in sys.modules if m.split('.')[0]\n"
+        "    in ('jax', 'flax', 'optax', 'unetsulc_tpu')),\n"
+        "    sorted(m for m in sys.modules if m.startswith(p.__name__))]))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+    forbidden, port = json.loads(out.stdout.strip().splitlines()[-1])
+    assert forbidden == []
+    assert set(PARALLEL) <= set(port)
+
+
+def test_source_scan_covers_parallel():
+    """The source scan below reads the ``parallel`` package's files."""
+    scanned = {str(p.relative_to(ROOT)) for p in SOURCES}
+    assert {"unetsulc_tpu_torch/parallel/__init__.py",
+            "unetsulc_tpu_torch/parallel/mesh.py",
+            "unetsulc_tpu_torch/parallel/sp_fused.py"} <= scanned
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))

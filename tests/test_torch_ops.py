@@ -178,6 +178,17 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         kernels.conv3x3x3_wgrad(buf, ab, buf)
     with pytest.raises(ValueError, match="CUDA"):
         kernels.max_pool_buf_bwd(buf, ab, buf, buf)
+    # the halo modes of A, C and D
+    plane, valid = buf[0], torch.ones(5)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.conv3x3x3_fwd([buf], [ab], torch.zeros((8, 8, 3, 3, 3)),
+                              torch.zeros(8), halos=[(plane, plane)],
+                              valids=[valid], valid_out=valid)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.conv3x3x3_dx(buf, ab, buf, torch.zeros((27, 32, 64)),
+                             post_halo=(plane, None), valid=valid)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.conv3x3x3_wgrad(buf, ab, buf, halo=(None, plane), valid=valid)
     x3 = torch.zeros((1, 10, 8), dtype=torch.bfloat16)
     st = torch.zeros((1, 2))
     c8 = torch.zeros(8)
@@ -191,6 +202,7 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         kernels.gn_bwd_dx(x3, x3, st, st, c8, st, st)
     assert set(kernels.launch_counts) == {
         "conv3x3x3_fwd", "conv3x3x3_dx", "conv3x3x3_wgrad",
+        "conv3x3x3_fwd_halo", "conv3x3x3_dx_halo", "conv3x3x3_wgrad_halo",
         "max_pool_buf_fwd", "max_pool_buf_bwd", "gn_stats", "gn_apply",
         "gn_bwd_reduce", "gn_bwd_dx"}
     assert not any(kernels.launch_counts.values())

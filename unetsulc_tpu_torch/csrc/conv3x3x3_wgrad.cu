@@ -4,7 +4,9 @@
 // buffer and its pending GroupNorm affine.
 //
 // Replaces: unetsulc_tpu/ops/conv_pallas.py `_wgrad_kernel` (launched by
-// `conv_wgrad_shards`, reached through `_fused_bwd`).
+// `conv_wgrad_shards`, reached through `_fused_bwd`) as
+// `conv3x3x3_wgrad`, and its spatial-parallel mode (`halo`, `valid_in`,
+// conv_pallas.py:1136-1145 and :1197-1240) as `conv3x3x3_wgrad_halo`.
 //
 // Layout. x: the branch's forward input, a padded channels-last buffer
 // (X+2, Y+2, Z+2, cin) bf16 with a zero ring; ab: its (2, cin) f32 affine
@@ -13,6 +15,14 @@
 // bf16, the cotangent of the conv's pre-activation, exactly 0 on the ring,
 // so only interior voxels contribute. dW: (27, cin, cout) f32, zeroed by
 // the caller; tap = dx*9 + dy*3 + dz, off(tap) = (dx-1, dy-1, dz-1).
+//
+// Halo mode (a shard's slab of the volume along X,
+// `unetsulc_tpu_torch/parallel/sp_fused.py`): x's planes 0 and X+1 are the
+// neighbours' boundary planes, passed as the separate (Y+2, Z+2, cin)
+// operands lo and hi, and valid ((X+2,) f32) says which planes hold data:
+// xn on a ring plane is normalized as an interior plane where valid is 1
+// and is 0 where it is 0 (the global volume's edge), as kernel A reads it.
+// dconv's ring is still 0, so only interior voxels v contribute.
 //
 // GEMM view, per tap: M = cin, N = cout, K = interior voxels (884,736 at
 // 96^3) — a small output over a very long contraction. A block owns one
@@ -99,6 +109,9 @@ __device__ __forceinline__ void load16(const __nv_bfloat16* __restrict__ src,
 
 __global__ void __launch_bounds__(THREADS)
     conv3x3x3_wgrad_kernel(const __nv_bfloat16* __restrict__ x,
+                           const __nv_bfloat16* __restrict__ lo,
+                           const __nv_bfloat16* __restrict__ hi,
+                           const float* __restrict__ valid,
                            const float* __restrict__ ab, int cin,
                            const __nv_bfloat16* __restrict__ dconv, int cout,
                            int X, int Y, int Z, long long chunk,
@@ -152,8 +165,17 @@ __global__ void __launch_bounds__(THREADS)
       const int vy = (int)(t % Y), vx = (int)(t / Y);
       // interior voxel v sits at padded v + 1; its tap reads padded v + d
       const int px = vx + dx, py = vy + dy, pz = vz + dz;
-      in_x = px >= 1 && px <= X && py >= 1 && py <= Y && pz >= 1 && pz <= Z;
-      srcx = x + ((long long)(px * Yp + py) * Zp + pz) * cin + m0 + kc;
+      const bool plane_ok =
+          valid != nullptr ? px >= 0 && px <= X + 1 && valid[px] != 0.0f
+                           : px >= 1 && px <= X;
+      in_x = plane_ok && py >= 1 && py <= Y && pz >= 1 && pz <= Z;
+      const long long yz = (long long)py * Zp + pz;
+      if (valid != nullptr && px == 0)
+        srcx = lo + yz * cin + m0 + kc;
+      else if (valid != nullptr && px == X + 1)
+        srcx = hi + yz * cin + m0 + kc;
+      else
+        srcx = x + ((long long)px * Yp * Zp + yz) * cin + m0 + kc;
       srcd = dconv +
              ((long long)((vx + 1) * Yp + vy + 1) * Zp + vz + 1) * cout + n0 +
              kc;
@@ -204,13 +226,10 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-}  // namespace
-
-// x (X+2, Y+2, Z+2, cin) bf16, ab (2, cin) f32, dconv (X+2, Y+2, Z+2, cout)
-// bf16 -> dw (27, cin, cout) f32, which the caller zeroes.
-extern "C" int conv3x3x3_wgrad(const void* x, const float* ab, int cin,
-                               const void* dconv, int cout, int X, int Y,
-                               int Z, float* dw, void* stream) {
+int launch_wgrad(const void* x, const void* lo, const void* hi,
+                 const float* valid, const float* ab, int cin,
+                 const void* dconv, int cout, int X, int Y, int Z, float* dw,
+                 void* stream) {
   const long long M = (long long)X * Y * Z;
   const int tiles = 27 * ((cin + BM - 1) / BM) * ((cout + BN - 1) / BN);
   long long splits = (TARGET_BLOCKS + tiles - 1) / tiles;
@@ -223,7 +242,32 @@ extern "C" int conv3x3x3_wgrad(const void* x, const float* ab, int cin,
   const dim3 grid((unsigned)tiles, (unsigned)splits);
   conv3x3x3_wgrad_kernel<<<grid, THREADS, 0,
                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), ab, cin,
+      static_cast<const __nv_bfloat16*>(x),
+      static_cast<const __nv_bfloat16*>(lo),
+      static_cast<const __nv_bfloat16*>(hi), valid, ab, cin,
       static_cast<const __nv_bfloat16*>(dconv), cout, X, Y, Z, chunk, dw);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// x (X+2, Y+2, Z+2, cin) bf16, ab (2, cin) f32, dconv (X+2, Y+2, Z+2, cout)
+// bf16 -> dw (27, cin, cout) f32, which the caller zeroes.
+extern "C" int conv3x3x3_wgrad(const void* x, const float* ab, int cin,
+                               const void* dconv, int cout, int X, int Y,
+                               int Z, float* dw, void* stream) {
+  return launch_wgrad(x, nullptr, nullptr, nullptr, ab, cin, dconv, cout, X,
+                      Y, Z, dw, stream);
+}
+
+// Halo mode: as conv3x3x3_wgrad, with x's planes 0 and X+1 read from lo and
+// hi ((Y+2, Z+2, cin) bf16; may be null where valid marks the plane
+// invalid) and valid (X+2,) f32 the plane validity.
+extern "C" int conv3x3x3_wgrad_halo(const void* x, const void* lo,
+                                    const void* hi, const float* valid,
+                                    const float* ab, int cin,
+                                    const void* dconv, int cout, int X, int Y,
+                                    int Z, float* dw, void* stream) {
+  return launch_wgrad(x, lo, hi, valid, ab, cin, dconv, cout, X, Y, Z, dw,
+                      stream);
 }

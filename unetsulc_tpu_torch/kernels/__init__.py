@@ -4,7 +4,11 @@ Nine kernels in five sources: A ``conv3x3x3_fwd`` and C ``conv3x3x3_dx``
 (one template, ``conv3x3x3_fwd.cu``), D ``conv3x3x3_wgrad``, B
 ``max_pool_buf_fwd``, E ``max_pool_buf_bwd``, and the GroupNorm kernels
 ``gn_stats``, ``gn_apply``, ``gn_bwd_reduce`` and ``gn_bwd_dx``
-(``group_norm.cu``). Each source in
+(``group_norm.cu``). A, C and D also run in a spatial-parallel halo mode
+on a shard's slab of the volume (:mod:`unetsulc_tpu_torch.parallel`): the
+wrappers take the two halo planes and the plane-validity vectors, launch
+the mode's own entry point (``conv3x3x3_fwd_halo``, ``conv3x3x3_dx_halo``,
+``conv3x3x3_wgrad_halo``) and count it under that name. Each source in
 ``unetsulc_tpu_torch/csrc/`` has a plain C interface. At
 first use, every source whose library is missing is compiled by its own
 ``nvcc`` process (all started together) for ``sm_90a`` into
@@ -67,6 +71,20 @@ KERNELS = {
     # kernel D. x, ab, cin, dconv, cout, X, Y, Z, dw, stream
     "conv3x3x3_wgrad": ("conv3x3x3_wgrad", [_P, _P, _I, _P, _I, _I, _I, _I,
                                             _P, _P]),
+    # kernel A, halo mode. x1, ab1, c1, lo1, hi1, v1, x2, ab2, c2, lo2, hi2,
+    # v2, n_inputs, w, npad, bias, cout, X, Y, Z, valid_out, y, sums, stream
+    "conv3x3x3_fwd_halo": ("conv3x3x3_fwd", [_P, _P, _I, _P, _P, _P, _P, _P,
+                                             _I, _P, _P, _P, _I, _P, _I, _P,
+                                             _I, _I, _I, _I, _P, _P, _P, _P]),
+    # kernel C, halo (edge_outputs) mode. dconv, c, w, npad, post_a, post_x,
+    # post_lo, post_hi, valid, cout, X, Y, Z, dx, dlo, dhi, sums, stream
+    "conv3x3x3_dx_halo": ("conv3x3x3_fwd", [_P, _I, _P, _I, _P, _P, _P, _P,
+                                            _P, _I, _I, _I, _I, _P, _P, _P,
+                                            _P, _P]),
+    # kernel D, halo mode. x, lo, hi, valid, ab, cin, dconv, cout, X, Y, Z,
+    # dw, stream
+    "conv3x3x3_wgrad_halo": ("conv3x3x3_wgrad", [_P, _P, _P, _P, _P, _I, _P,
+                                                 _I, _I, _I, _I, _P, _P]),
     # kernel B. x, ab, c, X, Y, Z, y, stream
     "max_pool_buf_fwd": ("max_pool_buf_fwd", [_P, _P, _I, _I, _I, _I, _P,
                                               _P]),
@@ -207,6 +225,43 @@ def _check_buffer(t: torch.Tensor, what: str) -> None:
         raise ValueError(f"{what} must be 16-byte aligned")
 
 
+def _check_plane(t: torch.Tensor, shape, device, what: str) -> None:
+    """A halo plane (Y+2, Z+2, C) bf16 on ``device``: contiguous, and
+    16-byte aligned where the kernels read it in 16-byte vectors."""
+    if not t.is_cuda or t.device != device:
+        raise ValueError(f"{what} must be a CUDA tensor on {device}, got "
+                         f"{t.device}")
+    if t.dtype != torch.bfloat16 or tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{what} must be a bfloat16 {tuple(shape)} plane, got "
+                         f"{t.dtype} {tuple(t.shape)}")
+    if not t.is_contiguous() or (shape[-1] % 8 == 0 and t.data_ptr() % 16):
+        raise ValueError(f"{what} must be contiguous and 16-byte aligned")
+
+
+def _check_valid(v: torch.Tensor, xp: int, device, what: str) -> None:
+    if (v.device != device or v.dtype != torch.float32
+            or tuple(v.shape) != (xp,) or not v.is_contiguous()):
+        raise ValueError(f"{what} must be a contiguous float32 ({xp},) tensor "
+                         f"on {device}, got {v.dtype} {tuple(v.shape)} on "
+                         f"{v.device}")
+
+
+def _halo_ptrs(halo, valid, buf: torch.Tensor, what: str):
+    """(lo, hi, valid) pointers of one input's halo: ``halo`` = (lo, hi),
+    each a (Y+2, Z+2, C) plane or None where ``valid`` marks it invalid;
+    ``valid`` the (X+2,) plane validity."""
+    xp, yp, zp, c = (int(v) for v in buf.shape)
+    _check_valid(valid, xp, buf.device, f"{what} valid")
+    if halo is None or len(halo) != 2:
+        raise ValueError(f"{what}: halo mode takes a (lo, hi) pair of planes")
+    lo, hi = halo
+    for t, side in ((lo, "lo"), (hi, "hi")):
+        if t is not None:
+            _check_plane(t, (yp, zp, c), buf.device, f"{what} halo {side}")
+    return (None if lo is None else lo.data_ptr(),
+            None if hi is None else hi.data_ptr(), valid.data_ptr())
+
+
 def _check_affine(ab: torch.Tensor, c: int, device, what: str) -> None:
     if ab.device != device or ab.dtype != torch.float32:
         raise ValueError(f"{what} must be float32 on {device}")
@@ -283,6 +338,9 @@ def conv3x3x3_fwd(
     weight: torch.Tensor,
     bias: torch.Tensor,
     packed: Optional[torch.Tensor] = None,
+    halos=None,
+    valids: Optional[Sequence[torch.Tensor]] = None,
+    valid_out: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel A: relu(conv3x3x3(concat_i(mask * (a_i * x_i + b_i)), W) +
     bias) with per-channel stat sums, on padded bf16 buffers.
@@ -291,9 +349,21 @@ def conv3x3x3_fwd(
     their (2, C_i) f32 affines; weight: (Cout, sum C_i, 3, 3, 3); bias:
     (Cout,) f32; packed: ``pack_conv_weights(weight, C_i)``, packed here
     when None. Returns (y (Xp, Yp, Zp, Cout) bf16 with a zero ring, sums
-    (2, Cout) f32)."""
+    (2, Cout) f32).
+
+    Halo mode (``valids`` given, launched as ``conv3x3x3_fwd_halo``): input
+    i's planes 0 and Xp-1 are ``halos[i]`` = (lo, hi), (Yp, Zp, C_i) bf16
+    planes (None where invalid), read only where ``valids[i]`` ((Xp,) f32)
+    is nonzero; output planes where ``valid_out`` ((Xp,) f32, optional) is
+    0 are written as 0 and left out of the sums."""
     if len(xs) not in (1, 2) or len(abs_) != len(xs):
         raise ValueError("conv3x3x3_fwd takes one or two inputs with affines")
+    halo = valids is not None
+    if halo and (halos is None or len(halos) != len(xs) or len(valids) != len(xs)):
+        raise ValueError("halo mode takes one (lo, hi) pair and one valid "
+                         "vector per input")
+    if valid_out is not None and not halo:
+        raise ValueError("valid_out needs halo mode")
     x1 = xs[0]
     for i, (x, ab) in enumerate(zip(xs, abs_)):
         _check_buffer(x, f"input {i}")
@@ -320,17 +390,31 @@ def conv3x3x3_fwd(
     y = torch.zeros((xp, yp, zp, cout), dtype=torch.bfloat16, device=x1.device)
     sums = torch.zeros((2, cout), dtype=torch.float32, device=x1.device)
     x2, ab2 = (xs[1], abs_[1]) if len(xs) == 2 else (x1, abs_[0])
-    fn = _kernel("conv3x3x3_fwd")
+    stream = torch.cuda.current_stream(x1.device).cuda_stream
+    if halo:
+        name = "conv3x3x3_fwd_halo"
+        h = [_halo_ptrs(hl, v, x, f"input {i}")
+             for i, (x, hl, v) in enumerate(zip(xs, halos, valids))]
+        h2 = h[1] if len(xs) == 2 else h[0]
+        if valid_out is not None:
+            _check_valid(valid_out, xp, x1.device, "valid_out")
+        args = (x1.data_ptr(), abs_[0].data_ptr(), cins[0], *h[0],
+                x2.data_ptr(), ab2.data_ptr(), int(x2.shape[3]), *h2, len(xs),
+                w.data_ptr(), int(w.shape[2]), bias.data_ptr(), cout,
+                xp - 2, yp - 2, zp - 2,
+                None if valid_out is None else valid_out.data_ptr(),
+                y.data_ptr(), sums.data_ptr(), stream)
+    else:
+        name = "conv3x3x3_fwd"
+        args = (x1.data_ptr(), abs_[0].data_ptr(), cins[0],
+                x2.data_ptr(), ab2.data_ptr(), int(x2.shape[3]), len(xs),
+                w.data_ptr(), int(w.shape[2]), bias.data_ptr(), cout,
+                xp - 2, yp - 2, zp - 2, y.data_ptr(), sums.data_ptr(), stream)
+    fn = _kernel(name)
     with torch.cuda.device(x1.device):
-        err = fn(
-            x1.data_ptr(), abs_[0].data_ptr(), cins[0],
-            x2.data_ptr(), ab2.data_ptr(), int(x2.shape[3]), len(xs),
-            w.data_ptr(), int(w.shape[2]), bias.data_ptr(), cout,
-            xp - 2, yp - 2, zp - 2, y.data_ptr(), sums.data_ptr(),
-            torch.cuda.current_stream(x1.device).cuda_stream,
-        )
-    _raise_on(err, "conv3x3x3_fwd")
-    launch_counts["conv3x3x3_fwd"] += 1
+        err = fn(*args)
+    _raise_on(err, name)
+    launch_counts[name] += 1
     return y, sums
 
 
@@ -363,7 +447,9 @@ def conv3x3x3_dx(
     post_ab: torch.Tensor,
     post_x: torch.Tensor,
     packed: torch.Tensor,
-) -> Tuple[torch.Tensor, torch.Tensor]:
+    post_halo=None,
+    valid: Optional[torch.Tensor] = None,
+):
     """Kernel C: one input branch's gradients through the fused conv block.
 
     dconv: (Xp, Yp, Zp, Cout) bf16, the conv's cotangent, exactly 0 on the
@@ -372,7 +458,14 @@ def conv3x3x3_dx(
     ``pack_conv_weights_dx(weight, cins, branch)``. Returns (dx (Xp, Yp,
     Zp, Cin) bf16 = bf16(dxn * a) with a zero ring, sums (2, Cin) f32 =
     (sum post_x * dxn, sum dxn) over the interior), where dxn is the
-    transposed conv of dconv with the branch's weights."""
+    transposed conv of dconv with the branch's weights.
+
+    Halo mode (``valid`` given, launched as ``conv3x3x3_dx_halo``): the
+    forward read post_x's planes 0 and Xp-1 from ``post_halo`` = (lo, hi)
+    under ``valid`` ((Xp,) f32). dxn is also computed at those two planes,
+    the sums weigh every plane by ``valid`` and dx is 0 where it is 0.
+    Returns (dx with zero ring planes, sums, dlo, dhi): dlo and dhi
+    (Yp, Zp, Cin) bf16 are the gradients of the two halo planes."""
     _check_buffer(dconv, "dconv")
     _check_buffer(post_x, "post_x")
     if post_x.shape[:3] != dconv.shape[:3] or post_x.device != dconv.device:
@@ -388,27 +481,42 @@ def conv3x3x3_dx(
     dx = torch.zeros((xp, yp, zp, cin), dtype=torch.bfloat16,
                      device=dconv.device)
     sums = torch.zeros((2, cin), dtype=torch.float32, device=dconv.device)
-    fn = _kernel("conv3x3x3_dx")
+    stream = torch.cuda.current_stream(dconv.device).cuda_stream
+    if valid is not None:
+        name = "conv3x3x3_dx_halo"
+        ptrs = _halo_ptrs(post_halo, valid, post_x, "post_x")
+        dlo, dhi = (torch.zeros((yp, zp, cin), dtype=torch.bfloat16,
+                                device=dconv.device) for _ in range(2))
+        args = (dconv.data_ptr(), c, packed.data_ptr(), int(packed.shape[2]),
+                post_ab.data_ptr(), post_x.data_ptr(), *ptrs, cin, xp - 2,
+                yp - 2, zp - 2, dx.data_ptr(), dlo.data_ptr(), dhi.data_ptr(),
+                sums.data_ptr(), stream)
+    else:
+        name = "conv3x3x3_dx"
+        args = (dconv.data_ptr(), c, packed.data_ptr(), int(packed.shape[2]),
+                post_ab.data_ptr(), post_x.data_ptr(), cin, xp - 2, yp - 2,
+                zp - 2, dx.data_ptr(), sums.data_ptr(), stream)
+    fn = _kernel(name)
     with torch.cuda.device(dconv.device):
-        err = fn(
-            dconv.data_ptr(), c, packed.data_ptr(), int(packed.shape[2]),
-            post_ab.data_ptr(), post_x.data_ptr(), cin, xp - 2, yp - 2,
-            zp - 2, dx.data_ptr(), sums.data_ptr(),
-            torch.cuda.current_stream(dconv.device).cuda_stream,
-        )
-    _raise_on(err, "conv3x3x3_dx")
-    launch_counts["conv3x3x3_dx"] += 1
-    return dx, sums
+        err = fn(*args)
+    _raise_on(err, name)
+    launch_counts[name] += 1
+    return (dx, sums, dlo, dhi) if valid is not None else (dx, sums)
 
 
-def conv3x3x3_wgrad(x: torch.Tensor, ab: torch.Tensor,
-                    dconv: torch.Tensor) -> torch.Tensor:
+def conv3x3x3_wgrad(x: torch.Tensor, ab: torch.Tensor, dconv: torch.Tensor,
+                    halo=None, valid: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
     """Kernel D: one input branch's weight gradient, (27, Cin, Cout) f32,
     dW[tap] = sum over the interior of xn[v + off(tap)]^T dconv[v], with
     xn = mask * bf16(f32(x) * a + b) recomputed from the (Xp, Yp, Zp, Cin)
     bf16 buffer x and its (2, Cin) f32 affine ab; dconv: (Xp, Yp, Zp, Cout)
     bf16, exactly 0 on the ring. Split-K partials meet by atomicAdd, so the
-    f32 result's last bits vary between runs."""
+    f32 result's last bits vary between runs.
+
+    Halo mode (``valid`` given, launched as ``conv3x3x3_wgrad_halo``): x's
+    planes 0 and Xp-1 are ``halo`` = (lo, hi), read under ``valid`` as
+    kernel A reads them."""
     _check_buffer(x, "wgrad input")
     _check_buffer(dconv, "dconv")
     if x.shape[:3] != dconv.shape[:3] or x.device != dconv.device:
@@ -417,15 +525,19 @@ def conv3x3x3_wgrad(x: torch.Tensor, ab: torch.Tensor,
     _check_affine(ab, cin, x.device, "wgrad affine")
     xp, yp, zp = (int(v) for v in x.shape[:3])
     dw = torch.zeros((27, cin, cout), dtype=torch.float32, device=x.device)
-    fn = _kernel("conv3x3x3_wgrad")
+    tail = (ab.data_ptr(), cin, dconv.data_ptr(), cout, xp - 2, yp - 2,
+            zp - 2, dw.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
+    if valid is not None:
+        name = "conv3x3x3_wgrad_halo"
+        args = (x.data_ptr(), *_halo_ptrs(halo, valid, x, "wgrad input"), *tail)
+    else:
+        name = "conv3x3x3_wgrad"
+        args = (x.data_ptr(), *tail)
+    fn = _kernel(name)
     with torch.cuda.device(x.device):
-        err = fn(
-            x.data_ptr(), ab.data_ptr(), cin, dconv.data_ptr(), cout,
-            xp - 2, yp - 2, zp - 2, dw.data_ptr(),
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
-    _raise_on(err, "conv3x3x3_wgrad")
-    launch_counts["conv3x3x3_wgrad"] += 1
+        err = fn(*args)
+    _raise_on(err, name)
+    launch_counts[name] += 1
     return dw
 
 

@@ -22,6 +22,19 @@ schedule); softmax/sigmoid in eval mode.
   kernel A as two inputs;
 * the head runs on the padded buffer (``padded_output`` returns it).
 
+**The spatial-parallel fused path** (:meth:`UNet3D.forward_sp`, the JAX
+model with ``sp_axis='space'`` inside ``shard_map``, unet3d.py:817-958
+there) runs the fused path on a list of X slabs, one per shard of a mesh
+(:mod:`unetsulc_tpu_torch.parallel`), every layer in lockstep over the
+shards: each fused unit fills every shard's halo, launches kernel A in
+halo mode once per shard, adds the shards' stat sums and forms one global
+GroupNorm affine. Level 0 runs on the slabs; the pooled level 1
+(``sp_shard_middle``) and level 2 (``sp_shard_deep``, when the slab
+splits twice) run sharded in the slab+E layout; the rest runs once on the
+mesh's home device, on gathered pooled-size volumes
+(:mod:`unetsulc_tpu_torch.parallel.sp_fused` has the plan). Same
+parameters, same ``state_dict``.
+
 **The non-fused path** (the JAX package's XLA path) on channels-last
 (N, X, Y, Z, C) tensors:
 
@@ -75,6 +88,7 @@ from unetsulc_tpu_torch.device import resolve_device
 from unetsulc_tpu_torch.ops import conv_fused as cf
 from unetsulc_tpu_torch.ops.groupnorm import group_norm
 from unetsulc_tpu_torch.ops.resize import resize_trilinear, resize_trilinear_buf
+from unetsulc_tpu_torch.parallel import sp_fused as sp
 
 
 def pick_num_groups(channels: int, preferred: int = 32) -> int:
@@ -206,6 +220,60 @@ class DoubleConv(nn.Module):
         x = self._fused_unit(x, self.conv1, self.norm1, self._packed1, dtype)
         return self._fused_unit(x, self.conv2, self.norm2, self._packed2, dtype)
 
+    @staticmethod
+    def _sp_unit(x, conv: nn.Conv3d, norm: nn.GroupNorm,
+                 packed: cf.PackedWeight, dtype, mid: bool) -> List[FusedVol]:
+        """One fused unit on every shard (the JAX package's ``SplitConv3``
+        with ``sp_axis`` and ``_block_pallas``'s psum, unet3d.py:211-357
+        there): fill each input's halo (:func:`sp.ring_fill`, or
+        :func:`sp.ring_fill_mid` in the slab+E layout), one halo-mode
+        launch per shard, the shards' stat sums added on the home device
+        into one affine over the global voxel count."""
+        n = len(x)
+        if isinstance(x[0], torch.Tensor):  # (1, S, Y, Z, cin) input slabs
+            outs = [cf.conv3d_dense_entry(r, conv.weight.to(r.device),
+                                          conv.bias.to(r.device), dtype,
+                                          ring=True)
+                    for r in sp.ring_planes_5d(x)]
+            bufs, sums, g = [o[0] for o in outs], [o[1] for o in outs], outs[0][2]
+        else:
+            vols = [list(v) if isinstance(v, (tuple, list)) else [v] for v in x]
+            g = vols[0][0].g
+            fills = []  # per input: (buffers, halos, valids, valid_outs)
+            for i in range(len(vols[0])):
+                b = [v[i].buf for v in vols]
+                if mid:
+                    fills.append(sp.ring_fill_mid(b))
+                else:
+                    halos, valids = sp.ring_fill(b)
+                    fills.append((b, halos, valids, [None] * n))
+            bufs, sums = [], []
+            for k in range(n):
+                dev = vols[k][0].buf.device
+                y, s = cf.fused_conv_block(
+                    [f[0][k] for f in fills], [v.aff for v in vols[k]],
+                    conv.weight.to(dev), conv.bias.to(dev), g, packed=packed,
+                    halos=[f[1][k] for f in fills],
+                    valids=[f[2][k] for f in fills], valid_out=fills[0][3][k])
+                bufs.append(y)
+                sums.append(s)
+        home = bufs[0].device
+        total = sum(t.to(home) for t in sums)
+        # slab+E: each shard owns P = X-1 planes, the last one the global
+        # trailing plane too; the unowned E copies are out of the sums
+        count = (n * (g.X - 1) + 1) * g.Y * g.Z if mid else n * g.voxels
+        aff = cf.gn_affine_from_sums(total, norm.weight, norm.bias,
+                                     norm.num_groups, count)
+        return [FusedVol(b, aff.to(b.device), g) for b in bufs]
+
+    def fused_sp(self, x, dtype: torch.dtype, mid: bool) -> List[FusedVol]:
+        """:meth:`fused` on every shard: ``x`` one input per shard (input
+        slabs, volumes or (skip, upsampled) pairs); ``mid``: the slab+E
+        layout."""
+        x = self._sp_unit(x, self.conv1, self.norm1, self._packed1, dtype, mid)
+        return self._sp_unit(x, self.conv2, self.norm2, self._packed2, dtype,
+                             mid)
+
     def _unit(self, x, conv: nn.Conv3d, norm: Optional[nn.GroupNorm], dtype):
         for op in self.order:
             if op == "c":
@@ -237,6 +305,19 @@ class Encoder(nn.Module):
                          cf.pool_geom(x.g))
         return self.double_conv.fused(x, dtype)
 
+    def fused_sp(self, x: List[FusedVol], dtype: torch.dtype,
+                 pool) -> List[FusedVol]:
+        """A sharded encoder (unet3d.py:439-507 of the JAX package):
+        ``pool`` pools the shards' volumes into the slab+E layout
+        (:func:`sp.sp_pool_local` from level-0 slabs,
+        :func:`sp.sp_pool_local_mid` from slab+E ones), or is None for
+        encoder 0; the DoubleConv then runs sharded."""
+        if pool is None:
+            return self.double_conv.fused_sp(x, dtype, mid=False)
+        bufs, g = pool([v.buf for v in x], [v.aff for v in x], x[0].g)
+        return self.double_conv.fused_sp([FusedVol(b, None, g) for b in bufs],
+                                         dtype, mid=True)
+
     def nonfused(self, x, dtype: torch.dtype) -> torch.Tensor:
         if self.pool:
             x = max_pool_3d(x)
@@ -264,6 +345,22 @@ class Decoder(nn.Module):
         up = FusedVol(resize_trilinear_buf(x.buf, x.g, skip.g), x.aff, skip.g)
         return self.double_conv.fused((skip, up), dtype)
 
+    def fused_sp(self, skip: List[FusedVol], x, dtype,
+                 mid: bool) -> List[FusedVol]:
+        """A sharded decoder (unet3d.py:604-661 of the JAX package): ``x``
+        is the replicated deeper output, or the deeper sharded decoder's
+        slab+E volumes, gathered first; each shard resizes it to its own
+        rows of the skip's level (slab+E rows when ``mid``), keeps its
+        affine pending, and the pair conv runs sharded."""
+        if isinstance(x, list):
+            x = sp_gather(x)
+        gt = skip[0].g
+        resize = sp.sp_resize_to_slab_mid if mid else sp.sp_resize_to_slab
+        ups = resize(x.buf, x.g, gt, [v.buf.device for v in skip])
+        pairs = [(v, FusedVol(u, x.aff.to(u.device), gt))
+                 for v, u in zip(skip, ups)]
+        return self.double_conv.fused_sp(pairs, dtype, mid)
+
     def nonfused(self, skip: torch.Tensor, x: torch.Tensor,
                  dtype) -> torch.Tensor:
         tx, ty, tz = (int(v) for v in skip.shape[1:4])
@@ -275,6 +372,13 @@ class Decoder(nn.Module):
                                     self.upsample.bias, dtype)
             up = up[:, :tx, :ty, :tz]
         return self.double_conv.nonfused((skip, up.to(skip.dtype)), dtype)
+
+
+def sp_gather(x: List[FusedVol]) -> FusedVol:
+    """Sharded slab+E volumes -> the replicated volume on the home device,
+    its affine still pending (``sp_mid_gather``)."""
+    buf, g = sp.sp_mid_gather([v.buf for v in x], x[0].g)
+    return FusedVol(buf, x[0].aff, g)
 
 
 class UNet3D(nn.Module):
@@ -292,7 +396,12 @@ class UNet3D(nn.Module):
     The forward records autograd's graph when a parameter needs a
     gradient. Inference callers run it under ``torch.no_grad()``. Dropout
     (``dropout > 0``, train mode) draws from ``dropout_generator``, which
-    the caller seeds (``train/step.py``)."""
+    the caller seeds (``train/step.py``).
+
+    ``sp_shard_middle`` and ``sp_shard_deep`` shape :meth:`forward_sp`'s
+    partition (the JAX model's fields of those names): shard the pooled
+    level 1, and level 2 where the slab splits twice; neither changes the
+    parameters."""
 
     def __init__(
         self,
@@ -308,6 +417,8 @@ class UNet3D(nn.Module):
         device="cuda",
         seed: int = 0,
         fused_blocks: bool = True,
+        sp_shard_middle: bool = True,
+        sp_shard_deep: bool = True,
     ):
         super().__init__()
         device = resolve_device(device)
@@ -325,6 +436,8 @@ class UNet3D(nn.Module):
         self.dropout = dropout
         self.compute_dtype = compute_dtype
         self.fused_blocks = fused_blocks
+        self.sp_shard_middle = sp_shard_middle
+        self.sp_shard_deep = sp_shard_deep
         i = init_channel_number
         meta = torch.device("meta")
         self.encoders = nn.ModuleList(
@@ -392,11 +505,12 @@ class UNet3D(nn.Module):
         return contextlib.nullcontext()
 
     def _head(self, h: torch.Tensor) -> torch.Tensor:
-        """The 1x1x1 chain as channel matmuls in the compute dtype."""
+        """The 1x1x1 chain as channel matmuls in the compute dtype, on h's
+        device."""
         dt = self.compute_dtype
         for conv in self._head_convs():
-            w = conv.weight.reshape(conv.out_channels, -1).t().to(dt)
-            h = torch.matmul(h, w) + conv.bias.to(dt)
+            w = conv.weight.reshape(conv.out_channels, -1).t()
+            h = torch.matmul(h, w.to(h.device, dt)) + conv.bias.to(h.device, dt)
         return h.float()
 
     def _forward_fused(self, x: torch.Tensor, padded_output: bool) -> torch.Tensor:
@@ -429,6 +543,72 @@ class UNet3D(nn.Module):
         for dec, skip in zip(self.decoders, skips[1:]):
             v = dec.nonfused(skip, v, dt)
         return self._head(v)
+
+    def forward_sp(
+        self,
+        xs: List[torch.Tensor],
+        train: bool = True,
+        apply_final_activation: Optional[bool] = None,
+        padded_output: bool = False,
+    ) -> List[torch.Tensor]:
+        """The fused forward of one volume split along X into slabs, one
+        per shard (``parallel.shard_x``): xs[k] (1, S, Y, Z, in_channels)
+        on shard k's device, the first shard's device the model's. Returns
+        each shard's output as :meth:`forward` returns it for its slab:
+        (S+2, Y+2, Z+2, out_channels) with ``padded_output``, else (1, S,
+        Y, Z, out_channels). The partition is the JAX model's under
+        ``sp_axis`` (class docstring); slab+E levels need an even S, and
+        level 2 is sharded when S % 4 == 0 and S/4 >= 4. Raises ValueError
+        where the fused pipeline does not take the slabs (unet3d.py:906-914
+        of the JAX package): batch > 1 per shard, dropout, another order,
+        ``interpolate=False``, in_channels > 8, an extent < 4, f32 on CUDA,
+        ``fused_blocks=False``."""
+        if not xs or any(x.dim() != 5 or x.shape[-1] != self.in_channels
+                         or x.shape[0] != xs[0].shape[0]
+                         or x.shape[2:] != xs[0].shape[2:] for x in xs):
+            raise ValueError("expected one (N, S, Y, Z, in_channels) slab "
+                             "per shard, of one shape")
+        if xs[0].device != self.device:
+            raise ValueError(f"the first slab is on {xs[0].device}, the model "
+                             f"on {self.device}")
+        s = int(xs[0].shape[1])
+        if not self.fused_eligible(xs[0]) or (self.sp_shard_middle and s % 2):
+            raise ValueError(
+                "spatial parallelism needs the fused pipeline: batch 1 per "
+                "shard, dropout 0, 'crg', interpolate, in_channels <= 8, "
+                "extents >= 4, bf16 on CUDA, fused_blocks, and an even slab "
+                f"with sp_shard_middle; got slabs {tuple(xs[0].shape)} on "
+                f"{xs[0].device}")
+        dt = self.compute_dtype
+        mid = self.sp_shard_middle
+        deep = mid and self.sp_shard_deep and s % 4 == 0 and s // 4 >= 4
+        e0, e1, e2, e3 = self.encoders
+        d0, d1, d2 = self.decoders
+        s0 = e0.fused_sp([x.to(dt) for x in xs], dt, None)
+        if mid:
+            s1 = e1.fused_sp(s0, dt, sp.sp_pool_local)
+        else:
+            buf, g = sp.sp_pool_gather([v.buf for v in s0],
+                                       [v.aff for v in s0], s0[0].g)
+            s1 = e1.double_conv.fused(FusedVol(buf, None, g), dt)
+        if deep:
+            s2 = e2.fused_sp(s1, dt, sp.sp_pool_local_mid)
+        else:
+            s2 = e2.fused(sp_gather(s1) if mid else s1, dt)
+        v = e3.fused(sp_gather(s2) if deep else s2, dt)
+        v = d0.fused_sp(s2, v, dt, mid=True) if deep else d0.fused(s2, v, dt)
+        v = d1.fused_sp(s1, v, dt, mid=True) if mid else d1.fused(s1, v, dt)
+        v = d2.fused_sp(s0, v, dt, mid=False)
+        outs = []
+        for u in v:
+            h = u.buf if padded_output else cf.unpad_from_geom(u.buf, u.g)
+            outs.append(self._head(cf.apply_affine(h, u.aff)))
+        if apply_final_activation is None:
+            apply_final_activation = not train
+        if apply_final_activation:
+            outs = [torch.sigmoid(o) if self.final_sigmoid
+                    else torch.softmax(o, -1) for o in outs]
+        return outs
 
     def forward(
         self,

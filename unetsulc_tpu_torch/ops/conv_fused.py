@@ -29,6 +29,18 @@ Each kernel call goes through one dispatcher here (:func:`conv_fwd`,
 a CUDA tensor goes to the kernel, a CPU tensor to the plain PyTorch version
 kept beside it (``*_plain``); there is no other dispatch.
 
+Spatial-parallel halo mode (``conv_shards``' ``halo``, ``valid_in``,
+``valid_out`` and ``edge_outputs`` in the JAX package; the plumbing is
+:mod:`unetsulc_tpu_torch.parallel.sp_fused`): a shard's buffer holds its
+slab of the volume along X, and each input of :func:`fused_conv_block`
+takes its two neighbour planes as separate operands ``halos[i]`` = (lo,
+hi), (Yp, Zp, C) each or None at the global volume's edge, with the
+plane validity ``valids[i]`` ((Xp,) f32): planes 0 and Xp-1 are read from
+lo and hi where valid, and as 0 elsewhere. ``valid_out`` ((Xp,) f32)
+marks the output planes this shard owns; the others are written as 0 and
+left out of the sums. The backward returns the gradients of lo and hi,
+which autograd routes back to the neighbours' buffers.
+
 The dense entry conv stays plain PyTorch, as the JAX package leaves it to
 XLA.
 """
@@ -153,6 +165,7 @@ def conv3d_dense_entry(
     weight: torch.Tensor,
     bias: torch.Tensor,
     dtype: torch.dtype,
+    ring: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, Geom]:
     """relu(conv3x3x3(x5) + bias) straight into buffer layout: the
     pipeline's entry conv (cin <= 8), as ``conv_pallas.conv3d_dense_entry``.
@@ -162,10 +175,20 @@ def conv3d_dense_entry(
     package leaves this to XLA too). The output is rounded to ``dtype``
     before the bias is added in ``dtype``, and the stat sums are taken from
     the rounded output in f32, as there. Returns (buf, sums (2, C), g).
-    ``weight`` is (Cout, Cin, 3, 3, 3)."""
+    ``weight`` is (Cout, Cin, 3, 3, 3).
+
+    ``ring`` (spatial parallel): x5's first and last X planes are the
+    neighbours' halo planes (zeros at the global volume's edges, where a
+    zero ring is the conv's padding); they take the ring's place, and the
+    output and sums cover the (X-2)-plane slab between them."""
     _, X, Y, Z, cin = x5.shape
-    g = make_geom(X, Y, Z)
-    p = pad_to_geom(x5.to(dtype), g)
+    if ring:
+        g = make_geom(X - 2, Y, Z)
+        p = F.pad(x5[0].to(dtype), (0, 0, 1, 1, 1, 1))
+    else:
+        g = make_geom(X, Y, Z)
+        p = pad_to_geom(x5.to(dtype), g)
+    X = g.X
     stack = torch.cat(
         [
             p[dx:dx + X, dy:dy + Y, dz:dz + Z]
@@ -192,88 +215,122 @@ def _kernel_affine(aff, x):
     return aff.float().contiguous()
 
 
-def conv_fwd(xs, affs, weight, bias, g: Geom, packed=None):
+def _contiguous_halo(halo):
+    return None if halo is None else tuple(
+        None if t is None else t.contiguous() for t in halo)
+
+
+def conv_fwd(xs, affs, weight, bias, g: Geom, packed=None, halos=None,
+             valids=None, valid_out=None):
     """Forward of :func:`fused_conv_block`: kernel A for CUDA tensors
-    (bf16 only), :func:`fused_conv_block_plain` for CPU tensors."""
+    (bf16 only; in halo mode when ``valids`` is given),
+    :func:`fused_conv_block_plain` for CPU tensors."""
     if xs[0].is_cuda:
         return kernels.conv3x3x3_fwd(
             [x.contiguous() for x in xs],
             [_kernel_affine(a, x) for x, a in zip(xs, affs)], weight,
             bias.float().contiguous(), packed,
+            halos=None if halos is None else [_contiguous_halo(h) for h in halos],
+            valids=valids, valid_out=valid_out,
         )
-    return fused_conv_block_plain(xs, affs, weight, bias, g)
+    return fused_conv_block_plain(xs, affs, weight, bias, g, halos, valids,
+                                  valid_out)
 
 
-def conv_dx(dconv, weight, cins, branch: int, aff, x, g: Geom, packed=None):
+def conv_dx(dconv, weight, cins, branch: int, aff, x, g: Geom, packed=None,
+            halo=None, valid=None):
     """dx and d(affine) sums of input ``branch``: kernel C for CUDA tensors
     (``packed``: ``kernels.pack_conv_weights_dx``, packed here when None),
     :func:`conv3x3x3_dx_plain` for CPU tensors. Returns (dx, (2, C_b) f32
-    sums (sum x * dxn, sum dxn))."""
+    sums (sum x * dxn, sum dxn)); in halo mode (``valid`` given; ``halo``
+    the forward's (lo, hi)) (dx, sums, dlo, dhi)."""
     if dconv.is_cuda:
         if packed is None:
             packed = kernels.pack_conv_weights_dx(weight, cins, branch)
         return kernels.conv3x3x3_dx(dconv.contiguous(), _kernel_affine(aff, x),
-                                    x.contiguous(), packed)
-    return conv3x3x3_dx_plain(dconv, weight, cins, branch, aff, x, g)
+                                    x.contiguous(), packed,
+                                    post_halo=_contiguous_halo(halo),
+                                    valid=valid)
+    return conv3x3x3_dx_plain(dconv, weight, cins, branch, aff, x, g, halo,
+                              valid)
 
 
-def conv_wgrad(x, aff, dconv, g: Geom):
+def conv_wgrad(x, aff, dconv, g: Geom, halo=None, valid=None):
     """(27, C_b, Cout) f32 weight gradient of one input branch: kernel D
-    for CUDA tensors, :func:`conv3x3x3_wgrad_plain` for CPU tensors."""
+    for CUDA tensors (in halo mode when ``valid`` is given),
+    :func:`conv3x3x3_wgrad_plain` for CPU tensors."""
     if x.is_cuda:
         return kernels.conv3x3x3_wgrad(x.contiguous(), _kernel_affine(aff, x),
-                                       dconv.contiguous())
-    return conv3x3x3_wgrad_plain(x, aff, dconv, g)
+                                       dconv.contiguous(),
+                                       halo=_contiguous_halo(halo), valid=valid)
+    return conv3x3x3_wgrad_plain(x, aff, dconv, g, halo, valid)
+
+
+# per input branch, the Function's tensor arguments: x, aff, lo, hi, valid
+_BRANCH = 5
 
 
 class _FusedConvBlock(torch.autograd.Function):
     """The counterpart of ``conv_pallas.fused_conv_block``'s custom VJP:
-    kernel A forward; backward per input branch, kernel C when the input
-    or its affine needs a gradient and kernel D when the weight does, so a
-    frozen block launches nothing (``ctx.needs_input_grad``)."""
+    kernel A forward; backward per input branch, kernel C when the input,
+    its affine or its halo planes need a gradient and kernel D when the
+    weight does, so a frozen block launches nothing
+    (``ctx.needs_input_grad``). Arguments after the bias: each branch's
+    (x, aff, lo, hi, valid), the last three None outside halo mode."""
 
     @staticmethod
-    def forward(ctx, g, packer, weight, bias, x1, aff1, x2, aff2):
-        xs = [x1] if x2 is None else [x1, x2]
-        affs = [aff1] if x2 is None else [aff1, aff2]
+    def forward(ctx, g, packer, valid_out, weight, bias, *branches):
+        bs = [branches[i:i + _BRANCH] for i in range(0, len(branches), _BRANCH)]
+        xs, affs = [b[0] for b in bs], [b[1] for b in bs]
+        halo = bs[0][4] is not None
         cins = [int(x.shape[3]) for x in xs]
         packed = None if packer is None else packer.get(weight, cins)
-        y, sums = conv_fwd(xs, affs, weight, bias, g, packed)
+        y, sums = conv_fwd(
+            xs, affs, weight, bias, g, packed,
+            halos=[(b[2], b[3]) for b in bs] if halo else None,
+            valids=[b[4] for b in bs] if halo else None, valid_out=valid_out)
         ctx.g, ctx.packer, ctx.cins = g, packer, cins
-        ctx.save_for_backward(weight, x1, aff1, x2, aff2, y)
+        ctx.save_for_backward(weight, y, *branches)
         return y, sums
 
     @staticmethod
     def backward(ctx, dy, dsums):
-        weight, x1, aff1, x2, aff2, y = ctx.saved_tensors
+        weight, y, *branches = ctx.saved_tensors
         g, cins = ctx.g, ctx.cins
-        need = ctx.needs_input_grad  # (g, packer, weight, bias, x1, ...)
+        # (g, packer, valid_out, weight, bias, then _BRANCH per branch)
+        need = ctx.needs_input_grad
         # cotangent through ReLU and the stat sums (conv_pallas.py:1376-1387):
-        # dconv = 1[y > 0] (dy + ds0 + 2 y ds1); y is 0 on the ring, so
-        # dconv is exactly 0 there, which kernels C and D rely on
+        # dconv = 1[y > 0] (dy + ds0 + 2 y ds1); y is 0 on the ring and on
+        # the planes valid_out drops, so dconv is exactly 0 there, which
+        # kernels C and D rely on
         yf = y.float()
         dconv = torch.where(yf > 0, dy.float() + dsums[0] + 2.0 * yf * dsums[1],
                             0.0).to(y.dtype)
-        dbias = dconv.float().sum((0, 1, 2)) if need[3] else None
-        grads = [None, None, None, None]  # x1, aff1, x2, aff2
+        dbias = dconv.float().sum((0, 1, 2)) if need[4] else None
+        grads = [None] * len(branches)
         dws = []
-        for b, (x, aff) in enumerate(((x1, aff1), (x2, aff2))[:len(cins)]):
-            if need[4 + 2 * b] or need[5 + 2 * b]:
+        for b in range(len(cins)):
+            i = b * _BRANCH
+            x, aff, lo, hi, valid = branches[i:i + _BRANCH]
+            halo = (lo, hi) if valid is not None else None
+            wants = need[5 + i:5 + i + 4]  # x, aff, lo, hi
+            if any(wants):
                 packed = (None if ctx.packer is None
                           else ctx.packer.get_dx(weight, cins, b))
-                dx, sums = conv_dx(dconv, weight, cins, b, aff, x, g, packed)
-                grads[2 * b] = dx if need[4 + 2 * b] else None
-                grads[2 * b + 1] = sums if need[5 + 2 * b] else None
-            if need[2]:
-                dws.append(conv_wgrad(x, aff, dconv, g))
+                out = conv_dx(dconv, weight, cins, b, aff, x, g, packed, halo,
+                              valid)
+                for k, t in enumerate(out):
+                    grads[i + k] = t if wants[k] else None
+            if need[3]:
+                dws.append(conv_wgrad(x, aff, dconv, g, halo, valid))
         dw = None
-        if need[2]:
+        if need[3]:
             # (27, Cin, Cout) taps -> (Cout, Cin, 3, 3, 3); rounded to the
             # compute dtype, as the JAX package's dW passes back through its
             # weight cast
             dw = torch.cat(dws, 1).permute(2, 1, 0).reshape(weight.shape)
             dw = dw.to(y.dtype).to(weight.dtype)
-        return (None, None, dw, dbias, *grads)
+        return (None, None, None, dw, dbias, *grads)
 
 
 def fused_conv_block(
@@ -283,6 +340,9 @@ def fused_conv_block(
     bias: torch.Tensor,
     g: Geom,
     packed: Optional["PackedWeight"] = None,
+    halos=None,
+    valids: Optional[Sequence[torch.Tensor]] = None,
+    valid_out: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """relu(conv3x3x3(concat_i(mask * (a_i * x_i + b_i)), W) + bias) with
     the per-channel stat sums of the f32 result, on padded buffers;
@@ -296,13 +356,25 @@ def fused_conv_block(
     in the inputs' dtype with a zero ring, sums (2, Cout) f32) — the
     counterpart of ``conv_pallas.fused_conv_block``.
 
+    Halo mode (module docstring) when ``valids`` is given: ``halos[i]`` =
+    (lo, hi) and ``valids[i]`` per input, ``valid_out`` optional; the
+    sums are the shard's own, which the caller adds over the shards.
+
     CUDA tensors go to kernels A, C and D (bf16 only); CPU tensors to
     their plain versions."""
     if len(xs) not in (1, 2) or len(affs) != len(xs):
         raise ValueError("fused_conv_block takes one or two inputs with affines")
-    x2, aff2 = (xs[1], affs[1]) if len(xs) == 2 else (None, None)
-    return _FusedConvBlock.apply(g, packed, weight, bias, xs[0], affs[0], x2,
-                                 aff2)
+    halo = valids is not None
+    if halo and (halos is None or len(halos) != len(xs) or len(valids) != len(xs)):
+        raise ValueError("halo mode takes one (lo, hi) pair and one valid "
+                         "vector per input")
+    if valid_out is not None and not halo:
+        raise ValueError("valid_out needs halo mode")
+    branches = []
+    for i, (x, aff) in enumerate(zip(xs, affs)):
+        lo, hi = halos[i] if halo else (None, None)
+        branches += [x, aff, lo, hi, valids[i] if halo else None]
+    return _FusedConvBlock.apply(g, packed, valid_out, weight, bias, *branches)
 
 
 class PackedWeight:
@@ -363,52 +435,105 @@ def _normalized(x, aff, mask, dtype):
     return torch.where(mask, v, 0.0).to(dtype)
 
 
-def fused_conv_block_plain(xs, affs, weight, bias, g: Geom):
+def halo_filled(x: torch.Tensor, halo) -> torch.Tensor:
+    """x with its planes 0 and Xp-1 replaced by ``halo`` = (lo, hi), zeros
+    where a plane is None: the buffer a halo-mode kernel reads (the plain
+    versions' form; the kernels read the planes where they lie)."""
+    zero = x.new_zeros(x.shape[1:])
+    lo, hi = (zero if t is None else t for t in halo)
+    return torch.cat([lo[None], x[1:-1], hi[None]])
+
+
+def halo_mask(g: Geom, valid: torch.Tensor) -> torch.Tensor:
+    """(Xp, Yp, Zp, 1) bool: the (y, z) interior of every plane p with
+    valid[p] != 0."""
+    yz = torch.zeros((g.Yp, g.Zp), dtype=torch.bool, device=valid.device)
+    yz[1:1 + g.Y, 1:1 + g.Z] = True
+    return (valid != 0)[:, None, None, None] & yz[None, :, :, None]
+
+
+def _read_mask(x, g: Geom, halo, valid):
+    """(the buffer a conv reads, the mask it reads it under)."""
+    if valid is None:
+        return x, interior_mask(g, x.device)
+    return halo_filled(x, halo), halo_mask(g, valid)
+
+
+def fused_conv_block_plain(xs, affs, weight, bias, g: Geom, halos=None,
+                           valids=None, valid_out=None):
     """Plain PyTorch version of the forward of :func:`fused_conv_block`
     (and of kernel A).
 
-    Normalizes each input in f32 under the interior mask and rounds it to
-    the storage dtype, as the kernel's prologue does, then runs one f32
-    ``F.conv3d`` of the concatenation (TF32 off, so bf16 products are
-    exact and only the summation order differs from the kernel)."""
+    Normalizes each input in f32 under the interior mask (in halo mode:
+    its neighbour planes in place of the ring planes, each plane under its
+    validity) and rounds it to the storage dtype, as the kernel's prologue
+    does, then runs one f32 ``F.conv3d`` of the concatenation (TF32 off, so
+    bf16 products are exact and only the summation order differs from the
+    kernel); output planes where ``valid_out`` is 0 become 0 before the
+    sums."""
     dtype = xs[0].dtype
-    mask = interior_mask(g, xs[0].device)
-    norm = [_normalized(x, aff, mask, dtype) for x, aff in zip(xs, affs)]
+    norm = []
+    for i, (x, aff) in enumerate(zip(xs, affs)):
+        xr, mask = _read_mask(x, g, None if halos is None else halos[i],
+                              None if valids is None else valids[i])
+        norm.append(_normalized(xr, aff, mask, dtype))
     xn = torch.cat(norm, -1).float().permute(3, 0, 1, 2)[None]
     w = weight.to(dtype).float()
     with no_tf32():
         out = F.conv3d(xn, w)  # valid conv over the ring-padded buffer
     out = torch.relu(out[0].permute(1, 2, 3, 0) + bias.float())
+    if valid_out is not None:
+        out = torch.where((valid_out[1:1 + g.X] != 0)[:, None, None, None],
+                          out, 0.0)
     y = F.pad(out.to(dtype), (0, 0, 1, 1, 1, 1, 1, 1))
     return y, stat_sums(out)
 
 
-def conv3x3x3_dx_plain(dconv, weight, cins, branch: int, aff, x, g: Geom):
+def conv3x3x3_dx_plain(dconv, weight, cins, branch: int, aff, x, g: Geom,
+                       halo=None, valid=None):
     """Plain PyTorch version of :func:`conv_dx` (and of kernel C).
 
     dxn = the f32 transposed conv of dconv's interior with the branch's
     weights (rounded to the storage dtype, as the kernel reads them; TF32
     off), then the cross-stats (sum f32(x) * dxn, sum dxn) over the
-    interior and dx = bf16(dxn * a) with a zero ring."""
+    interior and dx = bf16(dxn * a) with a zero ring.
+
+    Halo mode (``valid`` given; ``halo`` the forward's (lo, hi)): dxn also
+    at planes 0 and Xp-1, every plane weighed by ``valid`` (x's ring planes
+    being lo and hi), as ``_fused_bwd``'s halo branch
+    (conv_pallas.py:1405-1425); returns (dx with zero ring planes, sums,
+    dlo, dhi), dlo and dhi the (Yp, Zp, C) dx of planes 0 and Xp-1."""
     dtype = x.dtype
     c0 = sum(int(c) for c in cins[:branch])
     wb = weight[:, c0:c0 + int(cins[branch])].to(dtype).float()
     d = unpad_from_geom(dconv, g)[0].float().permute(3, 0, 1, 2)[None]
-    with no_tf32():
-        dxn = F.conv_transpose3d(d, wb, padding=1)[0].permute(1, 2, 3, 0)
-    xi = unpad_from_geom(x, g)[0].float()
+    if valid is None:
+        with no_tf32():
+            dxn = F.conv_transpose3d(d, wb, padding=1)[0].permute(1, 2, 3, 0)
+        xi = unpad_from_geom(x, g)[0].float()
+    else:
+        with no_tf32():  # all X+2 planes: padding 0 along X
+            dxn = F.conv_transpose3d(d, wb, padding=(0, 1, 1))[0].permute(
+                1, 2, 3, 0)
+        dxn = torch.where((valid != 0)[:, None, None, None], dxn, 0.0)
+        xi = halo_filled(x, halo)[:, 1:1 + g.Y, 1:1 + g.Z].float()
     sums = torch.stack([(xi * dxn).sum((0, 1, 2)), dxn.sum((0, 1, 2))])
     if aff is not None:
         dxn = dxn * aff[0].float()
-    return F.pad(dxn.to(dtype), (0, 0, 1, 1, 1, 1, 1, 1)), sums
+    if valid is None:
+        return F.pad(dxn.to(dtype), (0, 0, 1, 1, 1, 1, 1, 1)), sums
+    full = F.pad(dxn.to(dtype), (0, 0, 1, 1, 1, 1))
+    zero = torch.zeros_like(full[:1])
+    return torch.cat([zero, full[1:-1], zero]), sums, full[0], full[-1]
 
 
-def conv3x3x3_wgrad_plain(x, aff, dconv, g: Geom):
+def conv3x3x3_wgrad_plain(x, aff, dconv, g: Geom, halo=None, valid=None):
     """Plain PyTorch version of :func:`conv_wgrad` (and of kernel D): the
     explicit 27-tap contraction in f32, dW[tap] = xn[v + off(tap)]^T
     dconv[v] over the interior, with xn recomputed as kernel A's prologue
-    (TF32 off)."""
-    xn = _normalized(x, aff, interior_mask(g, x.device), x.dtype).float()
+    (in halo mode from the neighbour planes under ``valid``; TF32 off)."""
+    xr, mask = _read_mask(x, g, halo, valid)
+    xn = _normalized(xr, aff, mask, x.dtype).float()
     d = unpad_from_geom(dconv, g)[0].float().reshape(g.voxels, -1)
     taps = []
     with no_tf32():

@@ -26,6 +26,13 @@ JAX's: the two frameworks' random bits differ.
 Eval parity quirk: the torch model applies its final activation in eval
 mode, so the reference's validation loss is CE(softmax(logits)) while the
 train loss is CE(logits); :func:`make_eval_step` reproduces it.
+
+:func:`make_train_step_sp` and :func:`make_eval_step_sp` are the
+spatial-parallel steps: each volume split along X over a mesh's shards
+(``UNet3D.forward_sp``), the shards' NLL sums, valid counts and confusion
+counts added on the mesh's home device, and one backward of the summed
+loss, so the gradients of all shards meet in the model's parameters (the
+JAX steps' psums) before the same SGD-with-momentum update.
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ import torch.nn.functional as F
 
 from unetsulc_tpu_torch.ops.esi import confusion_counts
 from unetsulc_tpu_torch.ops.losses import cross_entropy_sum
+from unetsulc_tpu_torch.parallel.mesh import Mesh
 from unetsulc_tpu_torch.train import freeze
 
 
@@ -168,6 +176,110 @@ def make_train_step(model: torch.nn.Module, num_classes: int,
         opt.step()
         state.step += 1
         return loss, counts
+
+    return step
+
+
+def _check_slabs(mesh: Mesh, inputs, labels) -> None:
+    if len(inputs) != mesh.space or len(labels) != mesh.space:
+        raise ValueError(f"expected {mesh.space} input and label slabs (one "
+                         f"per shard), got {len(inputs)} and {len(labels)}")
+    for k, (x, lb, d) in enumerate(zip(inputs, labels, mesh.devices)):
+        if x.device != d or lb.device != d:
+            raise ValueError(f"slab {k} is not on its shard's device {d}")
+
+
+def _sp_volume(model, xs, lbs, num_classes: int, background: int, home,
+               train: bool, apply_activation: bool = False,
+               final_sigmoid: bool = False):
+    """One volume through ``forward_sp``: (NLL sum, valid count, confusion
+    counts), each the sum over the shards on ``home``. The counts come
+    from the raw logits; with ``apply_activation`` the NLL from the
+    activated outputs (the eval-mode quirk)."""
+    logits = model.forward_sp(xs, train=train, apply_final_activation=False,
+                              padded_output=True)
+    nll = torch.zeros((), dtype=torch.float32, device=home)
+    cnt = torch.zeros((), dtype=torch.int64, device=home)
+    counts = torch.zeros((3, num_classes), dtype=torch.int32, device=home)
+    for lg, lb in zip(logits, lbs):
+        lbl = _match_labels(lg, lb, background)
+        counts = counts + confusion_counts(
+            lbl, lg.detach().argmax(-1), num_classes, background).to(home)
+        if apply_activation:
+            lg = torch.sigmoid(lg) if final_sigmoid else torch.softmax(lg, -1)
+        n, c = cross_entropy_sum(lg, lbl, background)
+        nll, cnt = nll + n.to(home), cnt + c.to(home)
+    return nll, cnt, counts
+
+
+def make_train_step_sp(model: torch.nn.Module, num_classes: int, mesh: Mesh,
+                       momentum: float = 0.9, background: int = -1) -> Callable:
+    """The spatial-parallel train step (``train/step.py:506-585`` of the
+    JAX package): ``step(state, inputs, labels) -> (loss, counts)`` on the
+    mesh's home device, where inputs and labels are the batch's slabs, one
+    per shard (``parallel.shard_x`` of each). Each volume of the batch runs
+    through ``model.forward_sp`` (one volume at a time, as ``scan_batch``
+    does); its loss is the shards' NLL sum over the batch's total valid
+    count, summed over the shards before one backward, so the gradient of
+    every shard meets in the parameters; then one SGD-with-momentum update
+    of ``state``, as :func:`make_train_step`. The model's parameters live
+    on the home device."""
+
+    def step(state: TrainState, inputs: Sequence[torch.Tensor],
+             labels: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+        if state.model is not model:
+            raise ValueError("state belongs to another model")
+        _check_slabs(mesh, inputs, labels)
+        home = mesh.home
+        opt = state.optimizer
+        for group in opt.param_groups:
+            group["momentum"] = momentum
+        opt.zero_grad(set_to_none=True)
+        denom = sum((lb != background).sum().to(home) for lb in labels)
+        denom = denom.clamp_min(1).float()
+        loss = torch.zeros((), dtype=torch.float32, device=home)
+        counts = torch.zeros((3, num_classes), dtype=torch.int32, device=home)
+        for i in range(int(inputs[0].shape[0])):
+            nll, _, c = _sp_volume(model, [x[i:i + 1] for x in inputs],
+                                   [lb[i:i + 1] for lb in labels], num_classes,
+                                   background, home, train=True)
+            part = nll / denom
+            if part.requires_grad:
+                part.backward()
+            loss = loss + part.detach()
+            counts = counts + c
+        opt.step()
+        state.step += 1
+        return loss, counts
+
+    return step
+
+
+def make_eval_step_sp(model: torch.nn.Module, num_classes: int, mesh: Mesh,
+                      background: int = -1, apply_activation: bool = True,
+                      final_sigmoid: bool = False) -> Callable:
+    """The spatial-parallel eval step (``make_eval_step_sp`` of the JAX
+    package): ``step(inputs, labels) -> (loss, counts)`` on slabs, one
+    volume at a time, the shards' sums added as
+    :func:`make_train_step_sp` adds them; loss and counts as
+    :func:`make_eval_step`."""
+
+    @torch.no_grad()
+    def step(inputs: Sequence[torch.Tensor],
+             labels: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+        _check_slabs(mesh, inputs, labels)
+        home = mesh.home
+        nll = torch.zeros((), dtype=torch.float32, device=home)
+        cnt = torch.zeros((), dtype=torch.int64, device=home)
+        counts = torch.zeros((3, num_classes), dtype=torch.int32, device=home)
+        for i in range(int(inputs[0].shape[0])):
+            n, c, cc = _sp_volume(model, [x[i:i + 1] for x in inputs],
+                                  [lb[i:i + 1] for lb in labels], num_classes,
+                                  background, home, train=False,
+                                  apply_activation=apply_activation,
+                                  final_sigmoid=final_sigmoid)
+            nll, cnt, counts = nll + n, cnt + c, counts + cc
+        return nll / cnt.clamp_min(1), counts
 
     return step
 
