@@ -99,7 +99,26 @@ order (each phase aborts the script with a non-zero exit on failure):
    halo, its plain version, one library call on the halo-filled slab
    (cuDNN ``conv3d`` with padding (0, 1, 1); ``aten.convolution_backward``
    with that padding) and its bound;
-19. prints the kernels' JSON line, the card line, and the final JSON line.
+19. holds the three probe kernels (``mxu_dot``, ``mxu_rdot``,
+   ``slab_build``; ``csrc/mxu_probe.cu``) against their plain versions at
+   the JAX probe's shapes (ps 10976, 200 reps, its 11 + 6 + 6
+   combinations): o exactly equal, and for the build the whole final slab;
+20. runs the probe CLI (``unetsulc_tpu_torch.tools.mxu_probe.main([])``)
+   with the launch counts zeroed just before (11 / 6 / 6), then times every
+   probe launch against its plain version, ``torch.matmul`` on the same
+   bf16 operands (200 calls; none for the build) and its bound;
+21. runs the training CLI end to end in process
+   (``unetsulc_tpu_torch.main.main(["-p", ...])``): a 3-fold CV experiment
+   of the flagship (init 64, bf16, batch 1, 2 epochs, lr 0.01, momentum
+   0.9, thresholds 20 and 50, ``cuda`` 0) on six synthetic 96^3 graphs,
+   then a transfer experiment from its cv0 model; each checked for the
+   artifact tree, the results schema, finite and falling losses, the
+   launches (per epoch phase, printed: kernels A-E in the CV experiment;
+   A-D in the transfer one, whose fold 0 trains final_conv only and
+   launches no backward kernel, and whose fine-tuned decoders sit above
+   every pool), no plain version on a CUDA tensor, and the volumes used;
+   seconds per epoch and voxels/s printed;
+22. prints the kernels' JSON line, the card line, and the final JSON line.
 
 It exits non-zero without a result when CUDA is not available. Scratch
 files go under ``build/chip_smoke/``.
@@ -138,20 +157,24 @@ CLASSES = 63
 TRAIN_LR = 0.01
 WARMUP, STEPS = 3, 20
 # a step against the plain step on the card. bf16 gradients of this step
-# are noisy: two kernel steps from one state, which differ only in the
-# order of f32 atomic sums, differ per parameter by up to cosine 0.97 and
-# max |dg| / max |g| 0.28 on the deep encoder, and each bf16 step is
-# further still from an f32 step (PERF.md, "Training step"). So the loss
-# is held to 1%, all parameters' gradients together to cosine 0.98, and
-# each parameter's to cosine 0.9 and max |dg| <= 50% of its max |g|: bars
-# a wrong kernel, branch or layout breaks, and the noise does not.
+# are noisy: a kernel step and the plain step sum in different orders, and
+# the f32 differences flip bf16 roundings and ReLU gates that the deep
+# encoder amplifies, per parameter up to cosine 0.97 and max |dg| / max |g|
+# 0.3 at init; each bf16 step is further still from an f32 step (PERF.md,
+# "Training step"). So the loss is held to 1%, all parameters' gradients
+# together to cosine 0.98, and each parameter's to cosine 0.9 and max |dg|
+# <= 50% of its max |g|: bars a wrong kernel, branch or layout breaks, and
+# the noise does not. Two kernel steps from one state must agree bit for
+# bit: the kernels add their partial sums in a fixed order.
 LOSS_RTOL, GLOBAL_COS, GRAD_COS, GRAD_ERR = 0.01, 0.98, 0.9, 0.5
 # the trained state of the second comparison, in steps from the initial one
 TRAINED_STEPS = 100
 
 
 def fail(msg):
+    # on both streams: a caller that keeps only the end of one still sees it
     print(f"FAILED: {msg}", flush=True)
+    print(f"chip_smoke.py FAILED: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
 
 
@@ -969,7 +992,10 @@ def step_against_plain(model, step, x, labels, where, f32_model=None):
         return loss.item(), counts, {
             n: p.grad.detach().clone() for n, p in m.named_parameters()}
 
-    (lk, ck, gk), (_, _, gk2) = run(model, step, False), run(model, step, False)
+    (lk, ck, gk), (lk2, _, gk2) = run(model, step, False), run(model, step, False)
+    check(lk == lk2 and all(torch.equal(gk[n], gk2[n]) for n in gk),
+          f"two kernel steps from one state differ ({where}): the kernels "
+          "are deterministic")
     lp, cp, gp = run(model, step, True)
     print(f"  {where}: loss {lk:.6f} vs plain {lp:.6f} (rel "
           f"{abs(lk - lp) / abs(lp):.2e}); confusion counts equal: "
@@ -1692,6 +1718,11 @@ def phase_sp_train(dev, single_peak_gb):
         l1, c1, g1 = step_grads(model, single, (x, labels))
         _, _, g1b = step_grads(model, single, (x, labels))
         l2, c2, g2 = step_grads(model, step, (xs, ls))
+        _, _, g2b = step_grads(model, step, (xs, ls))
+        check(all(torch.equal(g1[k], g1b[k]) and torch.equal(g2[k], g2b[k])
+                  for k in g1),
+              f"space {n}: two steps from one state differ (the kernels are "
+              "deterministic)")
         print(f"  space {n}: loss {l2:.6f} vs single-device {l1:.6f} (rel "
               f"{abs(l2 - l1) / abs(l1):.2e}); confusion counts equal: "
               f"{bool(torch.equal(c1, c2))}", flush=True)
@@ -1921,6 +1952,379 @@ def phase_halo_timing(model, step, xs, ls):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the matrix-unit probe (phases 19-20) and the training CLI (phase 21)
+# ---------------------------------------------------------------------------
+
+PROBE_KERNELS = ["mxu_dot", "mxu_rdot", "slab_build"]
+PROBE_REPLACES = {"mxu_dot": "scripts/mxu_probe.py:24",
+                  "mxu_rdot": "scripts/mxu_probe.py:56",
+                  "slab_build": "scripts/mxu_probe.py:89"}
+# graph replays between one pair of CUDA events, per timed turn of a probe
+# launch (each launch already runs 200 dots or builds)
+PROBE_REPS = 3
+
+
+def probe_cases():
+    """(kernel, dims, kernel call, plain call, library call or None, bound
+    ms, bound_by) of every probe launch at the JAX script's shapes (ps
+    10976, reps 200, its 11 + 6 + 6 combinations). Bounds: the dots'
+    operations at the bf16 peak; the build's shared-memory bytes at 128 B
+    per clock on each SM at ``clocks.max.sm``."""
+    from unetsulc_tpu_torch.tools import mxu_probe as mp
+
+    dev = torch.device("cuda", 0)
+    ps, reps = mp.PS, mp.REPS
+    clock = mp.max_sm_clock_hz()
+    check(clock is not None, "nvidia-smi gave no SM clock")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    cases = []
+    for k, n in mp.DOT_COMBOS:
+        a, b = mp._const((ps, k), 0.5, dev), mp._const((k, n), 0.5, dev)
+        cases.append((
+            "mxu_dot", (k, n),
+            lambda k=k, n=n: mp.mxu_dot(k, n, ps, reps, dev),
+            lambda k=k, n=n: mp.mxu_dot_plain(k, n, ps, reps, dev),
+            lambda a=a, b=b: [torch.matmul(a, b) for _ in range(reps)],
+            reps * mp.dot_bound_us(ps, k, n) / 1e3, "operations"))
+    for m, n in mp.RDOT_COMBOS:
+        a, b = mp._const((ps, m), 0.5, dev), mp._const((ps, n), 0.5, dev)
+        cases.append((
+            "mxu_rdot", (m, n),
+            lambda m=m, n=n: mp.mxu_rdot(m, n, ps, reps, dev),
+            lambda m=m, n=n: mp.mxu_rdot_plain(m, n, ps, reps, dev),
+            lambda a=a, b=b: [torch.matmul(a.t(), b) for _ in range(reps)],
+            reps * mp.dot_bound_us(ps, m, n) / 1e3, "operations"))
+    for cs, c in mp.BUILD_COMBOS:
+        cases.append((
+            "slab_build", (cs, c),
+            lambda cs=cs, c=c: mp.slab_build(cs, c, ps, reps, dev),
+            lambda cs=cs, c=c: mp.slab_build_plain(cs, c, ps, reps, dev),
+            None, reps * mp.build_bound_us(cs, c, ps, clock, sms) / 1e3,
+            "bytes"))
+    return cases
+
+
+@torch.no_grad()
+def phase_probe_checks(dev):
+    """Each probe launch against its plain version at the JAX script's
+    shapes: o exactly equal for all three, and for the build the whole
+    final slab too. Every product is exact (0.5 * 0.5 in bf16) and every
+    f32 sum of the dot kernels, in any order, adds terms that are multiples
+    of the f32 spacing at its running total (csrc/mxu_probe.cu, "Exactness"),
+    so a difference is a bug, rdot included."""
+    from unetsulc_tpu_torch.tools import mxu_probe as mp
+
+    errs = {k: 0.0 for k in PROBE_KERNELS}
+    for name, dims, kern, plain, _, _, _ in probe_cases():
+        if name == "slab_build":
+            o, slab = mp.slab_build(*dims, mp.PS, mp.REPS, dev,
+                                    return_slab=True)
+            po, pslab = mp.slab_build_plain(*dims, mp.PS, mp.REPS, dev,
+                                            return_slab=True)
+            sync()
+            check(torch.equal(slab, pslab),
+                  f"slab_build {dims}: the final slab differs from the plain "
+                  "version's")
+        else:
+            o, po = kern(), plain()
+        sync()
+        err = float((o - po).abs().max())
+        check(torch.equal(o, po), f"{name} {dims}: max |err| {err} against "
+              "the plain version (exact expected)")
+        print(f"  {name} {dims}: o[0, 0] = {float(o[0, 0]):.1f}, equal to the "
+              "plain version", flush=True)
+        errs[name] = max(errs[name], err)
+    return errs
+
+
+def phase_probe(dev):
+    """The probe CLI (``tools.mxu_probe.main([])``) with the launch counts
+    zeroed just before and read just after (11 / 6 / 6); then every probe
+    launch timed against its plain version, ``torch.matmul`` on the same
+    bf16 operands from device memory (200 calls: the library's counterpart
+    of one launch; none for the build) and its bound."""
+    from unetsulc_tpu_torch import kernels
+    from unetsulc_tpu_torch.tools import mxu_probe as mp
+
+    kernels.reset_launch_counts()
+    t = time.time()
+    cli_rows = mp.main([])
+    counts = {k: kernels.launch_counts[k] for k in PROBE_KERNELS}
+    print(f"  probe CLI: {time.time() - t:.1f} s, launches {counts}",
+          flush=True)
+    want = {"mxu_dot": len(mp.DOT_COMBOS), "mxu_rdot": len(mp.RDOT_COMBOS),
+            "slab_build": len(mp.BUILD_COMBOS)}
+    check(counts == want, f"probe launches {counts}, expected {want}")
+    check(all(r["us"] and r["us"] > 0 for r in cli_rows),
+          "the probe CLI measured no time")
+
+    rows = {k: [] for k in PROBE_KERNELS}
+    for name, dims, kern, plain, lib, bound, bound_by in probe_cases():
+        gk, gp = capture(kern), capture(plain)
+        gl = capture(lib) if lib is not None else None
+        sync()
+        ms_k, ms_p, ms_l = [], [], []
+        for _ in range(3):
+            ms_p.append(event_ms(gp, PROBE_REPS))
+            ms_k.append(event_ms(gk, PROBE_REPS))
+            if gl is not None:
+                ms_l.append(event_ms(gl, PROBE_REPS))
+            ms_k.append(event_ms(gk, PROBE_REPS))
+        del gk, gp, gl
+        row = dict(shape=dims, ms=statistics.median(ms_k),
+                   plain_ms=statistics.median(ms_p),
+                   library_ms=statistics.median(ms_l) if ms_l else None,
+                   bound_ms=bound, bound_by=bound_by, max_abs_err=0.0)
+        lib_txt = ("none" if row["library_ms"] is None
+                   else f"{row['library_ms']:.4f} ms")
+        print(f"  {name} {dims}: kernel {row['ms']:.4f} ms "
+              f"({row['ms'] / mp.REPS * 1e3:.2f} µs per dot or build), plain "
+              f"{row['plain_ms']:.4f} ms, library {lib_txt}, bound "
+              f"{bound:.4f} ms ({bound_by}): {bound / row['ms'] * 100:.1f}% "
+              "of it", flush=True)
+        rows[name].append(row)
+    return counts, rows
+
+
+def plain_guard(calls):
+    """Record every call of a kernel's plain version that gets a CUDA
+    tensor (the dispatchers send CUDA tensors to the kernels only)."""
+    from unetsulc_tpu_torch.ops import conv_fused, groupnorm
+
+    fns = [(conv_fused, n) for n in (
+        "fused_conv_block_plain", "conv3x3x3_dx_plain",
+        "conv3x3x3_wgrad_plain", "max_pool_buf_plain",
+        "max_pool_buf_bwd_plain")] + [(groupnorm, n) for n in (
+            "gn_stats_plain", "gn_apply_plain", "gn_bwd_reduce_plain",
+            "gn_bwd_dx_plain")]
+
+    def cuda_in(v):
+        if isinstance(v, torch.Tensor):
+            return v.is_cuda
+        if isinstance(v, (list, tuple)):
+            return any(cuda_in(u) for u in v)
+        return False
+
+    def guarded(name, fn):
+        def call(*args, **kw):
+            if cuda_in(args) or cuda_in(list(kw.values())):
+                calls.append(name)
+            return fn(*args, **kw)
+        return call
+
+    @contextlib.contextmanager
+    def ctx():
+        saved = [(mod, n, getattr(mod, n)) for mod, n in fns]
+        for mod, n, fn in saved:
+            setattr(mod, n, guarded(n, fn))
+        try:
+            yield
+        finally:
+            for mod, n, fn in saved:
+                setattr(mod, n, fn)
+
+    return ctx()
+
+
+FUSED_KERNELS = ["conv3x3x3_fwd", "max_pool_buf_fwd", "conv3x3x3_dx",
+                 "conv3x3x3_wgrad", "max_pool_buf_bwd"]
+BACKWARD_KERNELS = ["conv3x3x3_dx", "conv3x3x3_wgrad", "max_pool_buf_bwd"]
+
+
+@contextlib.contextmanager
+def epoch_log(log):
+    """Append (phase, launches in the phase, perf, volume extents) for every
+    epoch phase that ``learning()`` runs, and print it."""
+    from unetsulc_tpu_torch import kernels
+    from unetsulc_tpu_torch.method.training import TrainingSulciLabeller
+
+    orig = TrainingSulciLabeller._epoch_pass
+
+    def logged(self, phase, *args, **kw):
+        before = dict(kernels.launch_counts)
+        out = orig(self, phase, *args, **kw)
+        sync()
+        launched = {k: kernels.launch_counts[k] - before[k]
+                    for k in FUSED_KERNELS}
+        loss, _, perf, extents = out
+        log.append(dict(phase=phase, loss=loss, launches=launched,
+                        seconds=perf["seconds"],
+                        voxels_per_sec=perf["voxels_per_sec"],
+                        extents=extents))
+        print(f"    [{phase}] loss {loss:.4f}, {perf['seconds']:.3f} s, "
+              f"{perf['voxels_per_sec']:,.0f} voxels/s, volumes {extents}, "
+              f"launches {launched}", flush=True)
+        return out
+
+    TrainingSulciLabeller._epoch_pass = logged
+    try:
+        yield
+    finally:
+        TrainingSulciLabeller._epoch_pass = orig
+
+
+def make_cohort(root, n):
+    """``n`` synthetic graphs from phase 5's generator as a cohort under
+    ``root``; each graph is its own uncut graph."""
+    from unetsulc_tpu_torch.io.container import save_graph_npz
+    from unetsulc_tpu_torch.io.graph import make_synthetic_graph
+
+    os.makedirs(os.path.join(root, "cohorts"))
+    subjects = []
+    for i in range(n):
+        g = make_synthetic_graph(np.random.default_rng(1000 + i), LABELS,
+                                 n_folds_per_label=2, points_per_fold=300,
+                                 extent=180)
+        path = os.path.join(root, f"subj{i}_L.npz")
+        save_graph_npz(g, path)
+        subjects.append({"name": f"subj{i}", "t1": None, "roots": None,
+                         "skeleton": None, "graph": path,
+                         "notcut_graph": path})
+    with open(os.path.join(root, "cohorts",
+                           "cohort-Flagship6_hemi-L.json"), "w") as f:
+        json.dump({"name": "Flagship6", "subjects": subjects}, f)
+
+
+def check_experiment(wp, name, results, log, folds, schema, launched):
+    """The artifact tree of tests/test_experiment.py:84-117, the results
+    schema with ``folds`` folds, finite losses, a falling mean loss over
+    the folds from epoch 1 to 2, the kernels ``launched`` launched and the
+    other fused kernels not."""
+    for key in schema:
+        check(key in results, f"{name}: results lack {key}")
+    check(len(results["lr"]) == folds and len(results["best_acc"]) == folds,
+          f"{name}: results hold {len(results['lr'])} folds")
+    for key in ("epoch_loss_train", "epoch_loss_val"):
+        check(len(results[key]) == folds
+              and all(len(c) == 2 for c in results[key]),
+              f"{name}: {key} {results[key]}")
+    for th, sc in results["threshold_scores"].items():
+        check(len(sc) == folds, f"{name}: threshold {th} scores {sc}")
+    check(set(results["threshold_scores"]) == {"20", "50"},
+          f"{name}: thresholds {sorted(results['threshold_scores'])}")
+    check(len(results["tpu"]) == folds and all(
+        r["step"] == "single_device" and r["kernels"] == "fused"
+        for r in results["tpu"]), f"{name}: routing {results['tpu']}")
+    data = os.path.join(wp, "data", "cohort-Flagship6_hemi-L_data.json")
+    check(os.path.exists(data), f"{name}: missing {data}")
+    for cvi in range(folds):
+        for f in (f"{name}_cv{cvi}_model.mdsm", f"{name}_cv{cvi}_params.json"):
+            p = os.path.join(wp, "models", name, f)
+            check(os.path.exists(p), f"missing {p}")
+        tb = os.path.join(wp, "tensorboard", name, f"cv{cvi}")
+        check(os.path.isdir(tb) and any(
+            n.startswith("events.out.tfevents") for n in os.listdir(tb)),
+            f"missing events under {tb}")
+    with open(os.path.join(wp, "models", name, f"{name}_params.json")) as f:
+        check("cutting_threshold" in json.load(f),
+              f"{name}: no cutting_threshold")
+    check(os.path.exists(os.path.join(wp, "results", f"{name}_results.json")),
+          f"{name}: no results file")
+    train = np.asarray(results["epoch_loss_train"], float)
+    check(bool(np.isfinite(train).all())
+          and bool(np.isfinite(np.asarray(results["epoch_loss_val"])).all()),
+          f"{name}: non-finite loss {results['epoch_loss_train']}")
+    m1, m2 = train[:, 0].mean(), train[:, 1].mean()
+    check(m2 < m1, f"{name}: mean train loss over the folds did not fall "
+          f"({m1:.4f} -> {m2:.4f})")
+    total = {k: sum(e["launches"][k] for e in log) for k in FUSED_KERNELS}
+    check(all((v > 0) == (k in launched) for k, v in total.items()),
+          f"{name}: launches {total}, expected launches of {launched} only")
+    trains = [e for e in log if e["phase"] == "train"]
+    secs = [e["seconds"] for e in trains]
+    vps = [e["voxels_per_sec"] for e in trains]
+    extents = sorted({x for e in log for x in e["extents"]})
+    print(f"  {name}: {folds} folds, mean train loss {m1:.4f} -> {m2:.4f}; "
+          f"train phase {statistics.median(secs):.3f} s per epoch (median; "
+          f"{min(secs):.3f}-{max(secs):.3f}), {statistics.median(vps):,.0f} "
+          f"voxels/s (median); volumes used {extents}; launches in all "
+          f"{total}", flush=True)
+    return dict(train_s=statistics.median(secs),
+                voxels_per_sec=statistics.median(vps), extents=extents,
+                launches=total)
+
+
+def phase_experiment(dev):
+    """The training CLI end to end on the card, in process: a 3-fold CV
+    experiment of the flagship (init 64, bf16, 'crg', interpolating) on six
+    synthetic 96^3 graphs, 2 epochs, batch 1 (per-sample cubic buckets),
+    SGD lr 0.01, momentum 0.9, thresholds 20 and 50; then a transfer
+    experiment from its cv0 model (final_conv only, then the decoders once
+    FineTunning fires: kernels A-D, no E). Launches per epoch phase are
+    printed; no plain version may get a CUDA tensor."""
+    from unetsulc_tpu_torch import kernels
+    from unetsulc_tpu_torch import main as port_main
+
+    root = os.path.join(WORK, "experiment")
+    shutil.rmtree(root, ignore_errors=True)
+    make_cohort(root, 6)
+    base = {"working_path": root, "cohort_name": "Flagship6", "hemi": "L",
+            "cuda": 0, "batch_size": 1, "lr": TRAIN_LR, "momentum": 0.9,
+            "n_cvinner": 3, "n_epochs": 2, "th_range": [20, 50]}
+    train_params = {**base, "learning": "training",
+                    "dict_model": {"name": "FlagshipCV", "num_filter": 64}}
+    model_dir = os.path.join(root, "models", "FlagshipCV")
+    transfer_params = {
+        **base, "learning": "transfer_learning",
+        "dict_model": {"name": "FlagshipTL", "num_filter": 64},
+        "dict_trained_model": {
+            "model_file": os.path.join(model_dir, "FlagshipCV_cv0_model.mdsm"),
+            "out_channels": os.path.join(model_dir,
+                                         "FlagshipCV_cv0_params.json"),
+            "init_channel_number": 64},
+        "patience": {"fine_tunning": 1}}
+    schema_train = ["lr", "momentum", "batch_size", "num_epochs",
+                    "graphs_train", "graphs_test", "patience",
+                    "epoch_loss_val", "epoch_acc_val", "epoch_loss_train",
+                    "epoch_acc_train", "best_acc", "best_epoch",
+                    "divide_lr_epoch", "duration", "threshold_scores", "tpu"]
+    schema_transfer = ["lr", "momentum", "batch_size", "num_epoch",
+                       "fine_tunning_epoch", "graphs_train", "graphs_test",
+                       "patience", "epoch_loss_val", "epoch_acc_val",
+                       "epoch_loss_train", "epoch_acc_train", "best_acc",
+                       "best_epoch", "duration", "threshold_scores", "tpu"]
+    out = {}
+    # the transfer experiment trains final_conv and then the decoders, no
+    # layer below a pool: kernel E (the pool backward) never runs there
+    for name, params, schema, launched in (
+            ("FlagshipCV", train_params, schema_train, FUSED_KERNELS),
+            ("FlagshipTL", transfer_params, schema_transfer,
+             FUSED_KERNELS[:4])):
+        path = os.path.join(root, f"{name}_parameters.json")
+        with open(path, "w") as f:
+            json.dump(params, f)
+        log, bad = [], []
+        kernels.reset_launch_counts()
+        t = time.time()
+        with epoch_log(log), plain_guard(bad):
+            results = port_main.main(["-p", path])
+        sync()
+        wall = time.time() - t
+        check(not bad, f"{name}: plain versions got CUDA tensors: "
+              f"{sorted(set(bad))}")
+        check(not any(kernels.launch_counts[k] for k in GN_KERNELS),
+              f"{name}: the fused flagship launched a GroupNorm kernel")
+        out[name] = check_experiment(root, name, results, log,
+                                     params["n_cvinner"], schema, launched)
+        out[name]["wall_s"] = wall
+        print(f"  {name}: main() took {wall:.1f} s", flush=True)
+        if name == "FlagshipTL":
+            # fold 0 trains final_conv only (no backward kernel) until the
+            # forced unfreeze after its last epoch; later folds train the
+            # decoders too (the reference's cross-fold semantics)
+            fold0 = [e for e in log if e["phase"] == "train"][:2]
+            check(all(e["launches"][k] == 0 for e in fold0
+                      for k in BACKWARD_KERNELS),
+                  "a final_conv-only epoch launched a backward kernel")
+            later = [e for e in log if e["phase"] == "train"][2:]
+            check(all(e["launches"]["conv3x3x3_dx"] > 0 for e in later),
+                  "a fine-tuning epoch launched no kernel C")
+            check(results["fine_tunning_epoch"][:1] == [1],
+                  f"fine_tunning_epoch {results['fine_tunning_epoch']}")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("CUDA is not available: chip_smoke.py needs an NVIDIA GPU",
@@ -1976,7 +2380,15 @@ def main():
     print("phase 18: halo-mode kernel times over one space-2 sp training "
           "step", flush=True)
     rows.update(phase_halo_timing(smodel, sstep, sxs, sls))
-    del smodel, sstep
+    del smodel, sstep, sxs, sls
+    print("phase 19: the probe kernels against their plain versions",
+          flush=True)
+    err_probe = phase_probe_checks(dev)
+    print("phase 20: the probe CLI and probe kernel times", flush=True)
+    probe_counts, probe_rows = phase_probe(dev)
+    print("phase 21: the training CLI end to end (3-fold CV, then transfer)",
+          flush=True)
+    experiments = phase_experiment(dev)
 
     gn_src = "unetsulc_tpu_torch/csrc/group_norm.cu"
     gn_cover = "one 96^3 non-fused flagship training step"
@@ -2061,6 +2473,31 @@ def main():
             "timed_launches": len(rs),
             "times_cover": cover,
         })
+    probe_cover = "one probe run (ps 10976, 200 dots or builds per launch)"
+    for name in PROBE_KERNELS:
+        rs = probe_rows[name]
+        line.append({
+            "name": name, "route": "cuda",
+            "source": "unetsulc_tpu_torch/csrc/mxu_probe.cu",
+            "replaces": PROBE_REPLACES[name],
+            "launches": probe_counts[name],
+            "max_abs_err": max(err_probe[name],
+                               max(r["max_abs_err"] for r in rs)),
+            "ms": sum(r["ms"] for r in rs),
+            "plain_ms": sum(r["plain_ms"] for r in rs),
+            "bound_ms": sum(r["bound_ms"] for r in rs),
+            "bound_by": rs[0]["bound_by"],
+            "library_ms": (None if rs[0]["library_ms"] is None
+                           else sum(r["library_ms"] for r in rs)),
+            "timed_launches": len(rs),
+            "times_cover": probe_cover,
+            **({"bound_note": "shared-memory bytes at 128 B per clock on "
+                "each SM at clocks.max.sm"} if name == "slab_build" else {}),
+        })
+    for name, e in experiments.items():
+        print(f"experiment {name}: train phase {e['train_s']:.3f} s per epoch "
+              f"(4 volumes), {e['voxels_per_sec']:,.0f} voxels/s, volumes "
+              f"{e['extents']}, main() {e['wall_s']:.1f} s", flush=True)
     print(f"label latency {label_ms:.1f} ms/graph, forward {fwd_ms:.2f} ms, "
           f"train step {train['step_ms']:.2f} ms; non-fused: label latency "
           f"{nf_label_ms:.1f} ms/graph, forward {nf_fwd_ms:.2f} ms, train "

@@ -200,9 +200,16 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         kernels.gn_bwd_reduce(x3, x3, st, st, c8)
     with pytest.raises(ValueError, match="CUDA"):
         kernels.gn_bwd_dx(x3, x3, st, st, c8, st, st)
+    # the probe kernels take a device, not tensors: the CPU raises
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.mxu_dot(64, 64, 40, 2, "cpu")
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.mxu_rdot(64, 64, 40, 2, "cpu")
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.slab_build(16, 2, 40, 2, "cpu")
     assert set(kernels.launch_counts) == {
         "conv3x3x3_fwd", "conv3x3x3_dx", "conv3x3x3_wgrad",
         "conv3x3x3_fwd_halo", "conv3x3x3_dx_halo", "conv3x3x3_wgrad_halo",
         "max_pool_buf_fwd", "max_pool_buf_bwd", "gn_stats", "gn_apply",
-        "gn_bwd_reduce", "gn_bwd_dx"}
+        "gn_bwd_reduce", "gn_bwd_dx", "mxu_dot", "mxu_rdot", "slab_build"}
     assert not any(kernels.launch_counts.values())

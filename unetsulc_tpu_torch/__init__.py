@@ -5,11 +5,13 @@ It mirrors the JAX package's module names so each counterpart is easy to
 find, imports nothing of it (it keeps its own copies of the jax-free host
 modules), and is tested against it on the CPU.
 
-What is ported so far is the labelling path (``label.py``): graph I/O,
-extraction, voxelization, the fused-pipeline forward of the flagship UNet3D
-with two hand-written CUDA kernels (:mod:`unetsulc_tpu_torch.kernels`),
-device-voted cutting and the labelling CLI
-(``python -m unetsulc_tpu_torch.label``).
+It runs both CLIs of the JAX package on the card: labelling
+(``python -m unetsulc_tpu_torch.label``) and the cross-validated training
+experiment (``python -m unetsulc_tpu_torch.main -p parameters.json``), on
+the flagship UNet3D's fused pipeline (hand-written CUDA kernels,
+:mod:`unetsulc_tpu_torch.kernels`) or its non-fused path, on one device or
+spatially sharded; and the matrix-unit probe
+(``python -m unetsulc_tpu_torch.tools.mxu_probe``).
 
 Every entry point takes a ``device`` argument that defaults to ``"cuda"``
 and raises when CUDA is absent; the CPU runs only when asked for

@@ -110,11 +110,15 @@ class TpuConfig:
     """The ``tpu`` sub-dict of ``parameters.json`` (no reference
     counterpart), under the JAX package's key so the same files parse.
 
-    The labelling path reads four fields: ``compute_dtype``,
-    ``shape_buckets``, ``device_vote`` and ``pallas_blocks`` (the model's
-    ``fused_blocks``: False sends every input to the non-fused path). Every
-    other field is parsed and ignored until the slice that ports what it
-    configures (training, multi-GPU; ROADMAP.md §1)."""
+    The port reads ``compute_dtype``, ``shape_buckets``, ``device_vote``,
+    ``pallas_blocks`` (the model's ``fused_blocks``: False sends every
+    input to the non-fused path), ``spatial_parallel`` (the sp step on a
+    mesh of that many cards), ``prefetch``, ``reset_momentum_on_divide``,
+    ``checkpoint_every``, ``resume``, ``evaluate``, ``augment`` and
+    ``sp_shard_middle`` / ``sp_shard_deep``. ``data_parallel`` > 1 and
+    ``fold_parallel`` > 1 raise ``NotImplementedError`` (not ported:
+    ROADMAP.md §1 item 5); ``pallas_groupnorm``, ``sp_pallas_cpu`` and
+    ``remat`` configure nothing in the port."""
 
     # compute dtype of the convs and matmuls ('bfloat16' or 'float32');
     # GroupNorm statistics and parameters stay float32 either way
@@ -154,7 +158,10 @@ class Parameters:
 
     working_path: str = "."
     learning: str = "training"       # 'transfer_learning' or anything else
-    cuda: int = -1                   # kept for schema compat; ignored
+    # the device (ref pattern_class.py:108-114): -1 the CPU, N cuda:N;
+    # absent (None) the card, so a file that says nothing never runs on
+    # the CPU. Parameters.device() resolves it; --device on the CLI wins
+    cuda: Optional[int] = None
     cohort_name: str = ""
     hemi: str = "L"
     batch_size: int = 1
@@ -190,6 +197,13 @@ class Parameters:
     def from_file(cls, path: str) -> "Parameters":
         with open(path, "r") as f:
             return cls.from_dict(json.load(f))
+
+    def device(self) -> str:
+        """The torch device ``cuda`` names: ``"cpu"`` for a negative index,
+        ``"cuda:N"`` for N, ``"cuda"`` when the file gives none."""
+        if self.cuda is None:
+            return "cuda"
+        return "cpu" if int(self.cuda) < 0 else f"cuda:{int(self.cuda)}"
 
     def cohort_file(self) -> str:
         # ref main.py:71

@@ -72,14 +72,17 @@
 // first version is the simple one: nvcuda::wmma 16x16x16 bf16
 // fragments fed from shared memory, one K step per __syncthreads pair, no
 // cp.async/TMA pipeline and no wgmma; it reaches a fraction of that rate
-// (PERF.md). The sums reduce over the block's rows in shared memory
-// and take one atomicAdd per channel per block, so their summation order
-// varies from run to run.
+// (PERF.md). The sums reduce over the block's rows in shared memory into
+// one row of partials per block (the caller's f32 workspace, `partial`),
+// and a fold (fold.cuh) adds the rows up in a fixed order: no atomics, so
+// the sums, and every step built on them, are the same in every run.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include "fold.cuh"
 
 using namespace nvcuda;
 
@@ -144,7 +147,9 @@ __device__ __forceinline__ __nv_bfloat16 norm_bf16(__nv_bfloat16 v, float a,
 // `edge` (kernel C in halo mode): the rows cover padded planes 0..X+1, not
 // 1..X. `row_valid` (or nullptr): rows whose padded output plane p has
 // row_valid[p] == 0 are not written and add nothing to the sums (kernel A:
-// valid_out; kernel C: the branch's valid).
+// valid_out; kernel C: the branch's valid). Block (bx, by) writes its
+// channels' two sums to partial[bx][0][n] and partial[bx][1][n], a
+// (gridDim.x, 2, cout) array that the launcher folds into the sums.
 template <bool DX>
 __global__ void __launch_bounds__(THREADS)
     conv3x3x3_kernel(Input in0, Input in1, int n_inputs,
@@ -153,7 +158,8 @@ __global__ void __launch_bounds__(THREADS)
                      const float* __restrict__ post_a,
                      Buf<const __nv_bfloat16> post, int cout, int X, int Y,
                      int Z, int edge, const float* __restrict__ row_valid,
-                     Buf<__nv_bfloat16> out, float* __restrict__ sums) {
+                     Buf<__nv_bfloat16> out,
+                     float* __restrict__ partial) {
   __shared__ __align__(128) unsigned char smem[SMEM_BYTES];
   __shared__ int s_plane[BM];  // each row's padded output plane, -1: none
   __nv_bfloat16* sA = reinterpret_cast<__nv_bfloat16*>(smem);
@@ -325,8 +331,9 @@ __global__ void __launch_bounds__(THREADS)
         s1 += v * v;
       }
     }
-    atomicAdd(sums + n0 + tid, s0);
-    atomicAdd(sums + cout + n0 + tid, s1);
+    float* row = partial + (long long)blockIdx.x * 2 * cout;
+    row[n0 + tid] = s0;
+    row[cout + n0 + tid] = s1;
   }
 
   // store: 8 channels per thread
@@ -366,12 +373,28 @@ Input make_input(const void* x, const float* ab, int c, const void* lo,
   return in;
 }
 
+// Rows of partial sums (one per block row of the grid) for M output rows.
+long long sum_rows(long long M) { return (M + BM - 1) / BM; }
+
+// The (rows, 2, cout) partials, then the fold's scratch, in one workspace.
+long long sums_ws_floats(long long M, int cout) {
+  const long long rows = sum_rows(M), cols = 2LL * cout;
+  return rows * cols + fold::scratch_floats(rows, cols);
+}
+
+cudaError_t fold_sums(float* ws, long long M, int cout, float* sums,
+                      cudaStream_t st) {
+  const long long rows = sum_rows(M), cols = 2LL * cout;
+  return fold::fold_cols(ws, rows, cols, ws + rows * cols, sums, st);
+}
+
 int launch_fwd(const void* x1, const float* ab1, int c1, const void* lo1,
                const void* hi1, const float* v1, const void* x2,
                const float* ab2, int c2, const void* lo2, const void* hi2,
                const float* v2, int n_inputs, const void* w, int npad,
                const float* bias, int cout, int X, int Y, int Z,
-               const float* valid_out, void* y, float* sums, void* stream) {
+               const float* valid_out, void* y, float* sums, float* ws,
+               void* stream) {
   Input in0 = make_input(x1, ab1, c1, lo1, hi1, v1, 0);
   Input in1 = make_input(x2, ab2, c2, lo2, hi2, v2, in0.cpad);
   if (n_inputs < 2) in1 = in0;
@@ -381,17 +404,19 @@ int launch_fwd(const void* x1, const float* ab1, int c1, const void* lo1,
   const Buf<const __nv_bfloat16> none{nullptr, nullptr, nullptr, nullptr, 0};
   const Buf<__nv_bfloat16> out{static_cast<__nv_bfloat16*>(y), nullptr,
                                nullptr, nullptr, cout};
-  conv3x3x3_kernel<false>
-      <<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-          in0, in1, n_inputs, static_cast<const __nv_bfloat16*>(w), ktot,
-          npad, bias, nullptr, none, cout, X, Y, Z, 0, valid_out, out, sums);
-  return (int)cudaGetLastError();
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  conv3x3x3_kernel<false><<<grid, THREADS, 0, st>>>(
+      in0, in1, n_inputs, static_cast<const __nv_bfloat16*>(w), ktot, npad,
+      bias, nullptr, none, cout, X, Y, Z, 0, valid_out, out, ws);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return (int)fold_sums(ws, M, cout, sums, st);
 }
 
 int launch_dx(const void* dconv, int c, const void* w, int npad,
               const float* post_a, const void* post_x, const void* post_lo,
               const void* post_hi, const float* valid, int cout, int X, int Y,
-              int Z, void* dx, void* dlo, void* dhi, float* sums,
+              int Z, void* dx, void* dlo, void* dhi, float* sums, float* ws,
               void* stream) {
   const Input in0 = make_input(dconv, nullptr, c, nullptr, nullptr, nullptr, 0);
   const int edge = valid != nullptr ? 1 : 0;
@@ -404,26 +429,38 @@ int launch_dx(const void* dconv, int c, const void* w, int npad,
   const Buf<__nv_bfloat16> out{static_cast<__nv_bfloat16*>(dx),
                                static_cast<__nv_bfloat16*>(dlo),
                                static_cast<__nv_bfloat16*>(dhi), valid, cout};
-  conv3x3x3_kernel<true>
-      <<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-          in0, in0, 1, static_cast<const __nv_bfloat16*>(w), in0.cpad, npad,
-          nullptr, post_a, post, cout, X, Y, Z, edge, valid, out, sums);
-  return (int)cudaGetLastError();
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  conv3x3x3_kernel<true><<<grid, THREADS, 0, st>>>(
+      in0, in0, 1, static_cast<const __nv_bfloat16*>(w), in0.cpad, npad,
+      nullptr, post_a, post, cout, X, Y, Z, edge, valid, out, ws);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return (int)fold_sums(ws, M, cout, sums, st);
 }
 
 }  // namespace
 
+// f32 workspace of one launch of kernel A or C (either mode) over an
+// X x Y x Z interior with cout output channels; `edge` is kernel C's halo
+// mode. -1 if it does not fit an int.
+extern "C" int conv3x3x3_sums_ws(int cout, int X, int Y, int Z, int edge) {
+  const long long M = (long long)(X + (edge ? 2 : 0)) * Y * Z;
+  const long long n = sums_ws_floats(M, cout);
+  return n > 0x7fffffffLL ? -1 : (int)n;
+}
+
 // Kernel A: x1 (and x2 when n_inputs == 2) (X+2, Y+2, Z+2, c_i) bf16 with
 // their (2, c_i) f32 affines -> y (X+2, Y+2, Z+2, cout) bf16, sums (2,
-// cout) f32; w: (27, Ktot, npad) bf16 packed by the wrapper.
+// cout) f32 (zeroed by the caller); w: (27, Ktot, npad) bf16 packed by the
+// wrapper; ws: conv3x3x3_sums_ws(cout, X, Y, Z, 0) f32.
 extern "C" int conv3x3x3_fwd(const void* x1, const float* ab1, int c1,
                              const void* x2, const float* ab2, int c2,
                              int n_inputs, const void* w, int npad,
                              const float* bias, int cout, int X, int Y, int Z,
-                             void* y, float* sums, void* stream) {
+                             void* y, float* sums, float* ws, void* stream) {
   return launch_fwd(x1, ab1, c1, nullptr, nullptr, nullptr, x2, ab2, c2,
                     nullptr, nullptr, nullptr, n_inputs, w, npad, bias, cout,
-                    X, Y, Z, nullptr, y, sums, stream);
+                    X, Y, Z, nullptr, y, sums, ws, stream);
 }
 
 // Kernel A in halo mode: as conv3x3x3_fwd, with each input's planes 0 and
@@ -435,38 +472,41 @@ extern "C" int conv3x3x3_fwd_halo(
     const void* hi1, const float* v1, const void* x2, const float* ab2,
     int c2, const void* lo2, const void* hi2, const float* v2, int n_inputs,
     const void* w, int npad, const float* bias, int cout, int X, int Y, int Z,
-    const float* valid_out, void* y, float* sums, void* stream) {
+    const float* valid_out, void* y, float* sums, float* ws, void* stream) {
   return launch_fwd(x1, ab1, c1, lo1, hi1, v1, x2, ab2, c2, lo2, hi2, v2,
                     n_inputs, w, npad, bias, cout, X, Y, Z, valid_out, y, sums,
-                    stream);
+                    ws, stream);
 }
 
 // Kernel C: dconv (X+2, Y+2, Z+2, c) bf16 -> dx (X+2, Y+2, Z+2, cout) bf16
 // = bf16(conv^T(dconv, W_branch) * post_a), sums (2, cout) f32 =
 // (sum post_x * dxn, sum dxn). w: the branch's mirrored, transposed
-// weights packed as (27, round_up(c, BK), npad) bf16.
+// weights packed as (27, round_up(c, BK), npad) bf16; ws:
+// conv3x3x3_sums_ws(cout, X, Y, Z, 0) f32.
 extern "C" int conv3x3x3_dx(const void* dconv, int c, const void* w,
                             int npad, const float* post_a, const void* post_x,
                             int cout, int X, int Y, int Z, void* dx,
-                            float* sums, void* stream) {
+                            float* sums, float* ws, void* stream) {
   return launch_dx(dconv, c, w, npad, post_a, post_x, nullptr, nullptr,
-                   nullptr, cout, X, Y, Z, dx, nullptr, nullptr, sums, stream);
+                   nullptr, cout, X, Y, Z, dx, nullptr, nullptr, sums, ws,
+                   stream);
 }
 
 // Kernel C in halo mode (`edge_outputs`): as conv3x3x3_dx, with dxn also
 // at padded planes 0 and X+1, written to dlo and dhi ((Y+2, Z+2, cout)
 // bf16, zeroed by the caller); post_x's planes 0 and X+1 are post_lo and
 // post_hi (the forward's halo planes, null where invalid); valid (X+2,)
-// f32 weighs each plane in the sums and zeroes dx on invalid planes.
+// f32 weighs each plane in the sums and zeroes dx on invalid planes; ws:
+// conv3x3x3_sums_ws(cout, X, Y, Z, 1) f32.
 extern "C" int conv3x3x3_dx_halo(const void* dconv, int c, const void* w,
                                  int npad, const float* post_a,
                                  const void* post_x, const void* post_lo,
                                  const void* post_hi, const float* valid,
                                  int cout, int X, int Y, int Z, void* dx,
                                  void* dlo, void* dhi, float* sums,
-                                 void* stream) {
+                                 float* ws, void* stream) {
   return launch_dx(dconv, c, w, npad, post_a, post_x, post_lo, post_hi, valid,
-                   cout, X, Y, Z, dx, dlo, dhi, sums, stream);
+                   cout, X, Y, Z, dx, dlo, dhi, sums, ws, stream);
 }
 
 extern "C" int conv3x3x3_fwd_tile_k() { return BK; }

@@ -31,11 +31,11 @@
 // splits), with the split count chosen so that ~8 blocks per SM are in
 // flight. Each K step stages 32 voxels of xn (as the transposed A tile,
 // read col-major by wmma) and of dconv in shared memory and runs
-// 16x16x16 bf16 wmma fragments with f32 accumulation. Each block adds its
-// f32 tile into dW with one atomicAdd per element: the split partial sums
-// meet in an order that varies from run to run, so the result is not
-// bitwise deterministic (its f32 rounding differs by a few ulps between
-// runs).
+// 16x16x16 bf16 wmma fragments with f32 accumulation. Each block writes
+// its f32 tile into its split's slice of the caller's workspace, a
+// (splits, 27, cin, cout) f32 array, and a fold (fold.cuh) adds the
+// splits into dW in a fixed order: no atomics, so dW is the same in every
+// run.
 //
 // What bounds it on this card: operations, 2 * voxels * 27 * cin * cout
 // FLOP, as the branch's forward conv; the bytes (x and dconv once, dW
@@ -47,6 +47,8 @@
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include "fold.cuh"
 
 using namespace nvcuda;
 
@@ -115,7 +117,7 @@ __global__ void __launch_bounds__(THREADS)
                            const float* __restrict__ ab, int cin,
                            const __nv_bfloat16* __restrict__ dconv, int cout,
                            int X, int Y, int Z, long long chunk,
-                           float* __restrict__ dw) {
+                           float* __restrict__ part) {
   __shared__ __align__(128) unsigned char smem[SMEM_BYTES];
   __nv_bfloat16* sA = reinterpret_cast<__nv_bfloat16*>(smem);  // [BK][LDA]
   __nv_bfloat16* sB = sA + BK * LDA;                            // [BK][LDB]
@@ -210,7 +212,7 @@ __global__ void __launch_bounds__(THREADS)
   }
 
   // epilogue: fragments -> smem (aliases the A/B tiles; every warp is past
-  // the K loop's last __syncthreads) -> one atomicAdd per element
+  // the K loop's last __syncthreads) -> this split's slice of the partials
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -218,46 +220,75 @@ __global__ void __launch_bounds__(THREADS)
       wmma::store_matrix_sync(sC + (wm + i * 16) * LDC + wn + j * 16,
                               acc[i][j], LDC, wmma::mem_row_major);
   __syncthreads();
-  float* out = dw + (long long)tap * cin * cout;
+  float* out = part + ((long long)blockIdx.y * 27 + tap) * cin * cout;
   for (int idx = tid; idx < BM * BN; idx += THREADS) {
     const int r = idx / BN, n = idx % BN;
     if (m0 + r < cin && n0 + n < cout)
-      atomicAdd(out + (long long)(m0 + r) * cout + n0 + n, sC[r * LDC + n]);
+      out[(long long)(m0 + r) * cout + n0 + n] = sC[r * LDC + n];
   }
+}
+
+int tiles_of(int cin, int cout) {
+  return 27 * ((cin + BM - 1) / BM) * ((cout + BN - 1) / BN);
+}
+
+// Voxels per split and the number of splits of the K range.
+void split_k(long long M, int tiles, long long* chunk, long long* splits) {
+  long long s = (TARGET_BLOCKS + tiles - 1) / tiles;
+  const long long most = (M + MIN_SPLIT - 1) / MIN_SPLIT;
+  if (s > most) s = most;
+  if (s < 1) s = 1;
+  long long c = (M + s - 1) / s;
+  c = (c + BK - 1) / BK * BK;
+  *chunk = c;
+  *splits = (M + c - 1) / c;
+}
+
+// The (splits, 27, cin, cout) partials, then the fold's scratch.
+long long wgrad_ws_floats(int cin, int cout, int X, int Y, int Z) {
+  long long chunk, splits;
+  split_k((long long)X * Y * Z, tiles_of(cin, cout), &chunk, &splits);
+  const long long cols = 27LL * cin * cout;
+  return splits * cols + fold::scratch_floats(splits, cols);
 }
 
 int launch_wgrad(const void* x, const void* lo, const void* hi,
                  const float* valid, const float* ab, int cin,
                  const void* dconv, int cout, int X, int Y, int Z, float* dw,
-                 void* stream) {
+                 float* ws, void* stream) {
   const long long M = (long long)X * Y * Z;
-  const int tiles = 27 * ((cin + BM - 1) / BM) * ((cout + BN - 1) / BN);
-  long long splits = (TARGET_BLOCKS + tiles - 1) / tiles;
-  const long long most = (M + MIN_SPLIT - 1) / MIN_SPLIT;
-  if (splits > most) splits = most;
-  if (splits < 1) splits = 1;
-  long long chunk = (M + splits - 1) / splits;
-  chunk = (chunk + BK - 1) / BK * BK;
-  splits = (M + chunk - 1) / chunk;
+  const int tiles = tiles_of(cin, cout);
+  long long chunk, splits;
+  split_k(M, tiles, &chunk, &splits);
   const dim3 grid((unsigned)tiles, (unsigned)splits);
-  conv3x3x3_wgrad_kernel<<<grid, THREADS, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  conv3x3x3_wgrad_kernel<<<grid, THREADS, 0, st>>>(
       static_cast<const __nv_bfloat16*>(x),
       static_cast<const __nv_bfloat16*>(lo),
       static_cast<const __nv_bfloat16*>(hi), valid, ab, cin,
-      static_cast<const __nv_bfloat16*>(dconv), cout, X, Y, Z, chunk, dw);
-  return (int)cudaGetLastError();
+      static_cast<const __nv_bfloat16*>(dconv), cout, X, Y, Z, chunk, ws);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const long long cols = 27LL * cin * cout;
+  return (int)fold::fold_cols(ws, splits, cols, ws + splits * cols, dw, st);
 }
 
 }  // namespace
 
+// f32 workspace of one launch (either mode); -1 if it does not fit an int.
+extern "C" int conv3x3x3_wgrad_ws(int cin, int cout, int X, int Y, int Z) {
+  const long long n = wgrad_ws_floats(cin, cout, X, Y, Z);
+  return n > 0x7fffffffLL ? -1 : (int)n;
+}
+
 // x (X+2, Y+2, Z+2, cin) bf16, ab (2, cin) f32, dconv (X+2, Y+2, Z+2, cout)
-// bf16 -> dw (27, cin, cout) f32, which the caller zeroes.
+// bf16 -> dw (27, cin, cout) f32, which the caller zeroes; ws:
+// conv3x3x3_wgrad_ws(cin, cout, X, Y, Z) f32.
 extern "C" int conv3x3x3_wgrad(const void* x, const float* ab, int cin,
                                const void* dconv, int cout, int X, int Y,
-                               int Z, float* dw, void* stream) {
+                               int Z, float* dw, float* ws, void* stream) {
   return launch_wgrad(x, nullptr, nullptr, nullptr, ab, cin, dconv, cout, X,
-                      Y, Z, dw, stream);
+                      Y, Z, dw, ws, stream);
 }
 
 // Halo mode: as conv3x3x3_wgrad, with x's planes 0 and X+1 read from lo and
@@ -267,7 +298,8 @@ extern "C" int conv3x3x3_wgrad_halo(const void* x, const void* lo,
                                     const void* hi, const float* valid,
                                     const float* ab, int cin,
                                     const void* dconv, int cout, int X, int Y,
-                                    int Z, float* dw, void* stream) {
+                                    int Z, float* dw, float* ws,
+                                    void* stream) {
   return launch_wgrad(x, lo, hi, valid, ab, cin, dconv, cout, X, Y, Z, dw,
-                      stream);
+                      ws, stream);
 }

@@ -22,9 +22,10 @@
 // its window, 0 where not selected. Each interior coordinate lies in
 // exactly one window, so the writes are disjoint and need no atomics; the
 // ring stays as the caller zeroed it. da = sum f32(x) * d and db = sum d
-// per channel: each thread's sums go into a shared-memory row per channel
-// (shared atomics), then one global atomicAdd per channel per block, so
-// their summation order varies from run to run; dx is exact.
+// per channel: each thread's sums go to shared memory, the block adds its
+// threads' sums per channel in thread order into its row of the caller's
+// (blocks, 2, C) f32 workspace, and a fold (fold.cuh) adds the rows in a
+// fixed order: no atomics, so dab is the same in every run; dx is exact.
 //
 // What bounds it on this card: bytes. It reads x's interior and the
 // pooled out and cot once, and writes dx once, with a few operations per
@@ -33,6 +34,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "fold.cuh"
 
 namespace {
 
@@ -53,13 +56,10 @@ __global__ void __launch_bounds__(THREADS)
                             const __nv_bfloat16* __restrict__ out,
                             const __nv_bfloat16* __restrict__ cot, int c,
                             int X, int Y, int Z, __nv_bfloat16* __restrict__ dx,
-                            float* __restrict__ dab) {
-  extern __shared__ float s_dab[];  // (2, c): da row, db row
+                            float* __restrict__ partial) {
+  // each thread's da (columns 0-7) and db (8-15) of its 8 channels
+  __shared__ float s_sums[THREADS][17];
   const bool has_ab = ab != nullptr;
-  if (has_ab) {
-    for (int i = threadIdx.x; i < 2 * c; i += THREADS) s_dab[i] = 0.0f;
-    __syncthreads();
-  }
 
   const int OX = X / 2 + 1, OY = Y / 2 + 1, OZ = Z / 2 + 1;
   const int groups = (c + 7) / 8;
@@ -132,35 +132,63 @@ __global__ void __launch_bounds__(THREADS)
       }
     }
     if (has_ab) {
-      for (int j = 0; j < nc; ++j) {
-        atomicAdd(s_dab + c0 + j, da[j]);
-        atomicAdd(s_dab + c + c0 + j, db[j]);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        s_sums[threadIdx.x][j] = da[j];
+        s_sums[threadIdx.x][8 + j] = db[j];
       }
     }
+  } else if (has_ab) {
+#pragma unroll
+    for (int j = 0; j < 16; ++j) s_sums[threadIdx.x][j] = 0.0f;
   }
-  if (has_ab) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < 2 * c; i += THREADS)
-      if (s_dab[i] != 0.0f) atomicAdd(dab + i, s_dab[i]);
+  if (!has_ab) return;
+  __syncthreads();
+  // row i of the block's partials: channel ch of da (i < c) or of db; the
+  // threads that own ch's group of 8 are every `groups`-th thread from the
+  // first of them, summed in thread order
+  const int base = (int)(((long long)blockIdx.x * THREADS) % groups);
+  float* row = partial + (long long)blockIdx.x * 2 * c;
+  for (int i = threadIdx.x; i < 2 * c; i += THREADS) {
+    const int which = i / c, ch = i % c;
+    const int g = ch / 8, j = which * 8 + ch % 8;
+    float t = 0.0f;
+    for (int k = (g - base + groups) % groups; k < THREADS; k += groups)
+      t += s_sums[k][j];
+    row[i] = t;
   }
+}
+
+long long blocks_of(int c, int X, int Y, int Z) {
+  const long long total =
+      (long long)(X / 2 + 1) * (Y / 2 + 1) * (Z / 2 + 1) * ((c + 7) / 8);
+  return (total + THREADS - 1) / THREADS;
 }
 
 }  // namespace
 
+// f32 workspace of one launch with an affine (none without); -1 if it does
+// not fit an int.
+extern "C" int max_pool_buf_bwd_ws(int c, int X, int Y, int Z) {
+  const long long rows = blocks_of(c, X, Y, Z), cols = 2LL * c;
+  const long long n = rows * cols + fold::scratch_floats(rows, cols);
+  return n > 0x7fffffffLL ? -1 : (int)n;
+}
+
+// ws: max_pool_buf_bwd_ws(c, X, Y, Z) f32 when ab is given, else unused.
 extern "C" int max_pool_buf_bwd(const void* x, const float* ab,
                                 const void* out, const void* cot, int c,
                                 int X, int Y, int Z, void* dx, float* dab,
-                                void* stream) {
-  const long long total =
-      (long long)(X / 2 + 1) * (Y / 2 + 1) * (Z / 2 + 1) * ((c + 7) / 8);
-  const unsigned blocks = (unsigned)((total + THREADS - 1) / THREADS);
-  const size_t smem = ab != nullptr ? 2 * (size_t)c * sizeof(float) : 0;
-  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-  max_pool_buf_bwd_kernel<<<blocks, THREADS, smem,
-                            static_cast<cudaStream_t>(stream)>>>(
+                                float* ws, void* stream) {
+  const long long blocks = blocks_of(c, X, Y, Z);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  max_pool_buf_bwd_kernel<<<(unsigned)blocks, THREADS, 0, st>>>(
       static_cast<const __nv_bfloat16*>(x), ab,
       static_cast<const __nv_bfloat16*>(out),
       static_cast<const __nv_bfloat16*>(cot), c, X, Y, Z,
-      static_cast<__nv_bfloat16*>(dx), dab);
-  return (int)cudaGetLastError();
+      static_cast<__nv_bfloat16*>(dx), ws);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || ab == nullptr) return (int)err;
+  const long long cols = 2LL * c;
+  return (int)fold::fold_cols(ws, blocks, cols, ws + blocks * cols, dab, st);
 }

@@ -1,10 +1,12 @@
 """The port's hand-written CUDA kernels: build, binding, launch wrappers.
 
-Nine kernels in five sources: A ``conv3x3x3_fwd`` and C ``conv3x3x3_dx``
+Twelve kernels in six sources: A ``conv3x3x3_fwd`` and C ``conv3x3x3_dx``
 (one template, ``conv3x3x3_fwd.cu``), D ``conv3x3x3_wgrad``, B
 ``max_pool_buf_fwd``, E ``max_pool_buf_bwd``, and the GroupNorm kernels
 ``gn_stats``, ``gn_apply``, ``gn_bwd_reduce`` and ``gn_bwd_dx``
-(``group_norm.cu``). A, C and D also run in a spatial-parallel halo mode
+(``group_norm.cu``), and the three probe kernels ``mxu_dot``, ``mxu_rdot``
+and ``slab_build`` (``mxu_probe.cu``, driven by
+:mod:`unetsulc_tpu_torch.tools.mxu_probe`). A, C and D also run in a spatial-parallel halo mode
 on a shard's slab of the volume (:mod:`unetsulc_tpu_torch.parallel`): the
 wrappers take the two halo planes and the plane-validity vectors, launch
 the mode's own entry point (``conv3x3x3_fwd_halo``, ``conv3x3x3_dx_halo``,
@@ -13,8 +15,14 @@ the mode's own entry point (``conv3x3x3_fwd_halo``, ``conv3x3x3_dx_halo``,
 first use, every source whose library is missing is compiled by its own
 ``nvcc`` process (all started together) for ``sm_90a`` into
 ``build/kernels/lib<name>-<hash>.so`` beside the package, keyed by a hash
-of the source and the flags, and loaded with ``ctypes``. Nothing is built
-when the package is imported.
+of the source, the shared headers and the flags, and loaded with
+``ctypes``. Nothing is built when the package is imported.
+
+Every kernel is deterministic: where blocks share an output (A's and C's
+stat sums, D's split-K, E's d(affine)), each block writes its partials to
+an f32 workspace that the wrapper allocates, and a fold adds them up in a
+fixed order (``csrc/fold.cuh``); no kernel adds floats with atomics, so a
+training step gives the same result in every run.
 
 The wrappers below take CUDA tensors only: they check device, dtype, shape,
 contiguity and alignment, allocate the outputs, launch on the current
@@ -48,6 +56,7 @@ SOURCES = {
     "max_pool_buf_fwd": "max_pool_buf_fwd.cu",
     "max_pool_buf_bwd": "max_pool_buf_bwd.cu",
     "group_norm": "group_norm.cu",
+    "mxu_probe": "mxu_probe.cu",
 }
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -61,36 +70,38 @@ _F = ctypes.c_float
 # kernel (C entry point) -> (library, argtypes)
 KERNELS = {
     # kernel A. x1, ab1, c1, x2, ab2, c2, n_inputs, w, npad, bias, cout,
-    # X, Y, Z, y, sums, stream
+    # X, Y, Z, y, sums, ws, stream
     "conv3x3x3_fwd": ("conv3x3x3_fwd", [_P, _P, _I, _P, _P, _I, _I, _P, _I,
-                                        _P, _I, _I, _I, _I, _P, _P, _P]),
+                                        _P, _I, _I, _I, _I, _P, _P, _P, _P]),
     # kernel C. dconv, c, w, npad, post_a, post_x, cout, X, Y, Z, dx, sums,
-    # stream
+    # ws, stream
     "conv3x3x3_dx": ("conv3x3x3_fwd", [_P, _I, _P, _I, _P, _P, _I, _I, _I,
-                                       _I, _P, _P, _P]),
-    # kernel D. x, ab, cin, dconv, cout, X, Y, Z, dw, stream
+                                       _I, _P, _P, _P, _P]),
+    # kernel D. x, ab, cin, dconv, cout, X, Y, Z, dw, ws, stream
     "conv3x3x3_wgrad": ("conv3x3x3_wgrad", [_P, _P, _I, _P, _I, _I, _I, _I,
-                                            _P, _P]),
+                                            _P, _P, _P]),
     # kernel A, halo mode. x1, ab1, c1, lo1, hi1, v1, x2, ab2, c2, lo2, hi2,
-    # v2, n_inputs, w, npad, bias, cout, X, Y, Z, valid_out, y, sums, stream
+    # v2, n_inputs, w, npad, bias, cout, X, Y, Z, valid_out, y, sums, ws,
+    # stream
     "conv3x3x3_fwd_halo": ("conv3x3x3_fwd", [_P, _P, _I, _P, _P, _P, _P, _P,
                                              _I, _P, _P, _P, _I, _P, _I, _P,
-                                             _I, _I, _I, _I, _P, _P, _P, _P]),
+                                             _I, _I, _I, _I, _P, _P, _P, _P,
+                                             _P]),
     # kernel C, halo (edge_outputs) mode. dconv, c, w, npad, post_a, post_x,
-    # post_lo, post_hi, valid, cout, X, Y, Z, dx, dlo, dhi, sums, stream
+    # post_lo, post_hi, valid, cout, X, Y, Z, dx, dlo, dhi, sums, ws, stream
     "conv3x3x3_dx_halo": ("conv3x3x3_fwd", [_P, _I, _P, _I, _P, _P, _P, _P,
                                             _P, _I, _I, _I, _I, _P, _P, _P,
-                                            _P, _P]),
+                                            _P, _P, _P]),
     # kernel D, halo mode. x, lo, hi, valid, ab, cin, dconv, cout, X, Y, Z,
-    # dw, stream
+    # dw, ws, stream
     "conv3x3x3_wgrad_halo": ("conv3x3x3_wgrad", [_P, _P, _P, _P, _P, _I, _P,
-                                                 _I, _I, _I, _I, _P, _P]),
+                                                 _I, _I, _I, _I, _P, _P, _P]),
     # kernel B. x, ab, c, X, Y, Z, y, stream
     "max_pool_buf_fwd": ("max_pool_buf_fwd", [_P, _P, _I, _I, _I, _I, _P,
                                               _P]),
-    # kernel E. x, ab, out, cot, c, X, Y, Z, dx, dab, stream
+    # kernel E. x, ab, out, cot, c, X, Y, Z, dx, dab, ws, stream
     "max_pool_buf_bwd": ("max_pool_buf_bwd", [_P, _P, _P, _P, _I, _I, _I,
-                                              _I, _P, _P, _P]),
+                                              _I, _P, _P, _P, _P]),
     # GroupNorm. x, dtype, n, s, c, groups, eps, nblocks, partial,
     # counters, mean, inv, stream
     "gn_stats": ("group_norm", [_P, _I, _I, _L, _I, _I, _F, _I, _P, _P, _P,
@@ -105,11 +116,25 @@ KERNELS = {
     # x, g, dtype, n, s, c, groups, mean, inv, scale, sdx, sdxx, dx, stream
     "gn_bwd_dx": ("group_norm", [_P, _P, _I, _I, _L, _I, _I, _P, _P, _P, _P,
                                  _P, _P, _P]),
+    # the probe. k, n, ps, reps, o, stream
+    "mxu_dot": ("mxu_probe", [_I, _I, _I, _I, _P, _P]),
+    # m, n, ps, reps, o, stream
+    "mxu_rdot": ("mxu_probe", [_I, _I, _I, _I, _P, _P]),
+    # cs, copies, ps, reps, o, slab_out, stream
+    "slab_build": ("mxu_probe", [_I, _I, _I, _I, _P, _P, _P]),
 }
 # helper (not a kernel) -> (library, argtypes); each returns an int
 HELPERS = {
+    # f32 workspace of one launch (-1: too large). cout, X, Y, Z, edge
+    "conv3x3x3_sums_ws": ("conv3x3x3_fwd", [_I, _I, _I, _I, _I]),
+    # cin, cout, X, Y, Z
+    "conv3x3x3_wgrad_ws": ("conv3x3x3_wgrad", [_I, _I, _I, _I, _I]),
+    # c, X, Y, Z
+    "max_pool_buf_bwd_ws": ("max_pool_buf_bwd", [_I, _I, _I, _I]),
     # n, s, c, dtype -> blocks per sample of gn_stats and gn_bwd_reduce
     "gn_partial_blocks": ("group_norm", [_I, _L, _I, _I]),
+    # cs, copies, ps -> slab rows per block of slab_build (0: too wide)
+    "slab_build_rows": ("mxu_probe", [_I, _I, _I]),
 }
 
 # launches of each kernel since the last reset_launch_counts(): each
@@ -138,10 +163,11 @@ def _nvcc() -> str:
 
 
 def library_paths() -> Dict[str, Path]:
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     out = {}
     for name, src in SOURCES.items():
         digest = hashlib.sha1(
-            (CSRC / src).read_bytes() + " ".join(NVCC_FLAGS).encode()
+            (CSRC / src).read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
         ).hexdigest()[:16]
         out[name] = BUILD_DIR / f"lib{name}-{digest}.so"
     return out
@@ -209,6 +235,15 @@ def _lib(name: str) -> ctypes.CDLL:
 def _kernel(name: str):
     """The C entry point of kernel ``name``."""
     return getattr(_lib(KERNELS[name][0]), name)
+
+
+def _workspace(helper: str, *dims: int, device) -> torch.Tensor:
+    """The f32 workspace that ``helper`` sizes for one launch: where the
+    kernel's blocks write their partial sums before the fold."""
+    n = getattr(_lib(HELPERS[helper][0]), helper)(*dims)
+    if n < 0:
+        raise ValueError(f"{helper}{dims}: workspace too large")
+    return torch.empty(max(n, 1), dtype=torch.float32, device=device)
 
 
 def _check_buffer(t: torch.Tensor, what: str) -> None:
@@ -389,6 +424,8 @@ def conv3x3x3_fwd(
     xp, yp, zp = (int(v) for v in x1.shape[:3])
     y = torch.zeros((xp, yp, zp, cout), dtype=torch.bfloat16, device=x1.device)
     sums = torch.zeros((2, cout), dtype=torch.float32, device=x1.device)
+    ws = _workspace("conv3x3x3_sums_ws", cout, xp - 2, yp - 2, zp - 2, 0,
+                    device=x1.device)
     x2, ab2 = (xs[1], abs_[1]) if len(xs) == 2 else (x1, abs_[0])
     stream = torch.cuda.current_stream(x1.device).cuda_stream
     if halo:
@@ -403,13 +440,14 @@ def conv3x3x3_fwd(
                 w.data_ptr(), int(w.shape[2]), bias.data_ptr(), cout,
                 xp - 2, yp - 2, zp - 2,
                 None if valid_out is None else valid_out.data_ptr(),
-                y.data_ptr(), sums.data_ptr(), stream)
+                y.data_ptr(), sums.data_ptr(), ws.data_ptr(), stream)
     else:
         name = "conv3x3x3_fwd"
         args = (x1.data_ptr(), abs_[0].data_ptr(), cins[0],
                 x2.data_ptr(), ab2.data_ptr(), int(x2.shape[3]), len(xs),
                 w.data_ptr(), int(w.shape[2]), bias.data_ptr(), cout,
-                xp - 2, yp - 2, zp - 2, y.data_ptr(), sums.data_ptr(), stream)
+                xp - 2, yp - 2, zp - 2, y.data_ptr(), sums.data_ptr(),
+                ws.data_ptr(), stream)
     fn = _kernel(name)
     with torch.cuda.device(x1.device):
         err = fn(*args)
@@ -481,6 +519,8 @@ def conv3x3x3_dx(
     dx = torch.zeros((xp, yp, zp, cin), dtype=torch.bfloat16,
                      device=dconv.device)
     sums = torch.zeros((2, cin), dtype=torch.float32, device=dconv.device)
+    ws = _workspace("conv3x3x3_sums_ws", cin, xp - 2, yp - 2, zp - 2,
+                    int(valid is not None), device=dconv.device)
     stream = torch.cuda.current_stream(dconv.device).cuda_stream
     if valid is not None:
         name = "conv3x3x3_dx_halo"
@@ -490,12 +530,12 @@ def conv3x3x3_dx(
         args = (dconv.data_ptr(), c, packed.data_ptr(), int(packed.shape[2]),
                 post_ab.data_ptr(), post_x.data_ptr(), *ptrs, cin, xp - 2,
                 yp - 2, zp - 2, dx.data_ptr(), dlo.data_ptr(), dhi.data_ptr(),
-                sums.data_ptr(), stream)
+                sums.data_ptr(), ws.data_ptr(), stream)
     else:
         name = "conv3x3x3_dx"
         args = (dconv.data_ptr(), c, packed.data_ptr(), int(packed.shape[2]),
                 post_ab.data_ptr(), post_x.data_ptr(), cin, xp - 2, yp - 2,
-                zp - 2, dx.data_ptr(), sums.data_ptr(), stream)
+                zp - 2, dx.data_ptr(), sums.data_ptr(), ws.data_ptr(), stream)
     fn = _kernel(name)
     with torch.cuda.device(dconv.device):
         err = fn(*args)
@@ -511,8 +551,8 @@ def conv3x3x3_wgrad(x: torch.Tensor, ab: torch.Tensor, dconv: torch.Tensor,
     dW[tap] = sum over the interior of xn[v + off(tap)]^T dconv[v], with
     xn = mask * bf16(f32(x) * a + b) recomputed from the (Xp, Yp, Zp, Cin)
     bf16 buffer x and its (2, Cin) f32 affine ab; dconv: (Xp, Yp, Zp, Cout)
-    bf16, exactly 0 on the ring. Split-K partials meet by atomicAdd, so the
-    f32 result's last bits vary between runs.
+    bf16, exactly 0 on the ring. The split-K partials are added in a fixed
+    order, so the result is the same in every run.
 
     Halo mode (``valid`` given, launched as ``conv3x3x3_wgrad_halo``): x's
     planes 0 and Xp-1 are ``halo`` = (lo, hi), read under ``valid`` as
@@ -525,8 +565,11 @@ def conv3x3x3_wgrad(x: torch.Tensor, ab: torch.Tensor, dconv: torch.Tensor,
     _check_affine(ab, cin, x.device, "wgrad affine")
     xp, yp, zp = (int(v) for v in x.shape[:3])
     dw = torch.zeros((27, cin, cout), dtype=torch.float32, device=x.device)
+    ws = _workspace("conv3x3x3_wgrad_ws", cin, cout, xp - 2, yp - 2, zp - 2,
+                    device=x.device)
     tail = (ab.data_ptr(), cin, dconv.data_ptr(), cout, xp - 2, yp - 2,
-            zp - 2, dw.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
+            zp - 2, dw.data_ptr(), ws.data_ptr(),
+            torch.cuda.current_stream(x.device).cuda_stream)
     if valid is not None:
         name = "conv3x3x3_wgrad_halo"
         args = (x.data_ptr(), *_halo_ptrs(halo, valid, x, "wgrad input"), *tail)
@@ -567,12 +610,15 @@ def max_pool_buf_bwd(
     dbuf = torch.zeros_like(buf)
     dab = None if ab is None else torch.zeros(
         (2, c), dtype=torch.float32, device=buf.device)
+    ws = None if ab is None else _workspace(
+        "max_pool_buf_bwd_ws", c, x, y, z, device=buf.device)
     fn = _kernel("max_pool_buf_bwd")
     with torch.cuda.device(buf.device):
         err = fn(
             buf.data_ptr(), None if ab is None else ab.data_ptr(),
             out.data_ptr(), cot.data_ptr(), c, x, y, z, dbuf.data_ptr(),
             None if dab is None else dab.data_ptr(),
+            None if ws is None else ws.data_ptr(),
             torch.cuda.current_stream(buf.device).cuda_stream,
         )
     _raise_on(err, "max_pool_buf_bwd")
@@ -729,3 +775,71 @@ def gn_bwd_dx(x: torch.Tensor, g: torch.Tensor, mean: torch.Tensor,
     _raise_on(err, "gn_bwd_dx")
     launch_counts["gn_bwd_dx"] += 1
     return dx
+
+
+# ---------------------------------------------------------------------------
+# the matrix-unit probe (``mxu_probe.cu``): no tensor inputs, every operand
+# a constant made on chip
+# ---------------------------------------------------------------------------
+
+
+def _probe_device(name: str, device, reps: int, **dims) -> torch.device:
+    """The CUDA device of a probe launch, after checking its sizes: each
+    of ``dims`` is (value, multiple it must be of)."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"{name} runs on a CUDA device, got {dev}")
+    for what, (v, mult) in dims.items():
+        if int(v) <= 0 or int(v) % mult:
+            raise ValueError(f"{name}: {what} must be a positive multiple of "
+                             f"{mult}, got {v}")
+    if int(reps) < 0:
+        raise ValueError(f"{name}: reps must be >= 0, got {reps}")
+    return dev
+
+
+def _probe_launch(name: str, dev: torch.device, args, outs) -> None:
+    fn = _kernel(name)
+    with torch.cuda.device(dev):
+        err = fn(*args, *[None if t is None else t.data_ptr() for t in outs],
+                 torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, name)
+    launch_counts[name] += 1
+
+
+def mxu_dot(k: int, n: int, ps: int, reps: int, device="cuda") -> torch.Tensor:
+    """``dot_kernel``: (8, n) f32, row 0 = reps x the column sums of
+    a (ps, k) @ b (k, n), both bf16 0.5; k a multiple of 32, n of 64."""
+    dev = _probe_device("mxu_dot", device, reps, k=(k, 32), n=(n, 64),
+                        ps=(ps, 1))
+    o = torch.zeros((8, n), dtype=torch.float32, device=dev)
+    _probe_launch("mxu_dot", dev, (k, n, ps, reps), [o])
+    return o
+
+
+def mxu_rdot(m: int, n: int, ps: int, reps: int, device="cuda") -> torch.Tensor:
+    """``rdot_kernel``: (8, 128) f32, o[0, 0] = reps x the sum of a^T @ b
+    for a (ps, m) and b (ps, n), both bf16 0.5; m and n multiples of 64."""
+    dev = _probe_device("mxu_rdot", device, reps, m=(m, 64), n=(n, 64),
+                        ps=(ps, 1))
+    o = torch.zeros((8, 128), dtype=torch.float32, device=dev)
+    _probe_launch("mxu_rdot", dev, (m, n, ps, reps), [o])
+    return o
+
+
+def slab_build(cs: int, copies: int, ps: int, reps: int, device="cuda",
+               return_slab: bool = False):
+    """``build_kernel``: o (1, 1) f32 = reps x norm[0, 0] after ``reps``
+    slab builds of a (ps, copies * cs) bf16 slab from 0.25; with
+    ``return_slab`` also the final slab (written by the launch to device
+    memory), as (o, slab). cs a multiple of 8."""
+    dev = _probe_device("slab_build", device, reps, cs=(cs, 8),
+                        copies=(copies, 1), ps=(ps, 1))
+    if _lib("mxu_probe").slab_build_rows(cs, copies, ps) == 0:
+        raise ValueError(f"slab_build: a slab row of {copies} x {cs} bf16 "
+                         "does not fit in a block's shared memory")
+    o = torch.zeros((1, 1), dtype=torch.float32, device=dev)
+    slab = (torch.empty((ps, copies * cs), dtype=torch.bfloat16, device=dev)
+            if return_slab else None)
+    _probe_launch("slab_build", dev, (cs, copies, ps, reps), [o, slab])
+    return (o, slab) if return_slab else o

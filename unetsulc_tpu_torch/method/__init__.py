@@ -1,1 +1,2 @@
-"""Method layer; so far the labelling subset of ``SulciLabeller``."""
+"""Method layer: the labeller base class with its training and transfer
+subclasses (counterpart of ``unetsulc_tpu/method/``)."""

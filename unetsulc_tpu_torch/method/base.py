@@ -1,10 +1,13 @@
-"""SulciLabeller — the labelling subset of the method-layer base class.
+"""SulciLabeller — the shared method-layer base class.
 
 Counterpart of ``SulciLabeller`` in ``unetsulc_tpu/method/base.py`` (ref
-pattern_class.py:32-368) for labelling: label maps, model config autofill,
-``.mdsm`` loading, and the dispatch/fetch split of the labelling forward
-with device-voted cutting. Training, the threshold sweep and the ``save_*``
-methods come with later slices (ROADMAP.md §1).
+pattern_class.py:32-368) with the same public API:
+``extract_data_from_graphs``, ``fill_dict_model``, ``test_thresholds``,
+``labeling``, ``save_data``, ``save_model``, ``save_results``,
+``save_params``, ``reset_results``, ``load_saved_model``. The model is the
+port's ``UNet3D`` (``self.model``); ``.mdsm`` files are its ``state_dict``
+written with ``torch.save``, and every JSON artifact keeps the reference's
+schema.
 
 The model runs on ``device`` (default ``"cuda"``; the CPU only when asked
 for). On CUDA, each labeller keeps its own stream: a dispatch enqueues the
@@ -19,6 +22,8 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import os.path as op
+import time
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -26,12 +31,15 @@ import torch
 
 from unetsulc_tpu_torch.config import _DEFAULT_MODELS, _DEFAULT_PARAMS, TpuConfig
 from unetsulc_tpu_torch.data.dataset import SulciDataset
+from unetsulc_tpu_torch.data.extract import extract_data
 from unetsulc_tpu_torch.data.voxelize import bucket_size
 from unetsulc_tpu_torch.device import resolve_device
+from unetsulc_tpu_torch.io.container import read_graph
 from unetsulc_tpu_torch.io.translation import FoldLabelsTranslator
 from unetsulc_tpu_torch.models.interop import load_mdsm
 from unetsulc_tpu_torch.models.unet3d import UNet3D
-from unetsulc_tpu_torch.ops.cutting import cut_part_ids_multi
+from unetsulc_tpu_torch.ops.cutting import cut_part_ids_multi, cutting
+from unetsulc_tpu_torch.ops.esi import esi_score
 from unetsulc_tpu_torch.train.step import make_label_fn, make_vote_fn
 
 
@@ -93,6 +101,10 @@ class SulciLabeller:
             self.flt = None
             self.trfile = None
 
+        # results
+        self.results: dict = {}
+        self.dict_scores: dict = {}
+
         self._predict_fns: Dict = {}
         self._stream = (
             torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
@@ -114,6 +126,25 @@ class SulciLabeller:
             for ss in ssl
             if not ss.startswith("unknown") and not ss.startswith("ventricle")
         ]
+
+    def extract_data_from_graphs(self) -> None:
+        """Build sulci_side_list / dict_bck2 / dict_names from the graphs
+        (ref pattern_class.py:116-139)."""
+        print("Creating sulci side list...")
+        names_set = set()
+        dict_bck2, dict_names = {}, {}
+        for gfile in self.graphs:
+            graph = read_graph(gfile)
+            if self.trfile is not None:
+                self.flt.translate(graph)
+            data = extract_data(graph)
+            dict_bck2[gfile] = np.asarray(data["bck2"]).tolist()
+            dict_names[gfile] = np.asarray(data["names"]).tolist()
+            names_set.update(dict_names[gfile])
+        self._build_label_maps(sorted(names_set))
+        print(len(self.sulci_side_list), " sulci detected")
+        self.dict_bck2 = dict_bck2
+        self.dict_names = dict_names
 
     # ------------------------------------------------------------------
     # model config autofill (ref pattern_class.py:141-175)
@@ -293,6 +324,157 @@ class SulciLabeller:
                 int(parts.max()) + 1,
             ).cpu().numpy()  # (T, n_parts) per-part label ids
         return np.take_along_axis(votes, parts, axis=1)
+
+    # ------------------------------------------------------------------
+    # threshold sweep (ref pattern_class.py:177-245)
+    # ------------------------------------------------------------------
+    def _read_graph_data(self, gfile: str) -> dict:
+        graph = read_graph(gfile)
+        if self.trfile is not None:
+            self.flt.translate(graph)
+        return extract_data(graph)
+
+    def test_thresholds(
+        self,
+        gfile_list_test: Sequence[str],
+        gfile_list_notcut_test: Sequence[str],
+        threshold_range: Sequence[int],
+        save_results: bool = True,
+    ) -> None:
+        """Score every cutting threshold on the test graphs: label each
+        graph, align its voxels with its uncut graph's, re-segment per
+        threshold and keep (1 - ESI) * 100 per graph in
+        ``dict_scores[threshold]`` (and in ``results['threshold_scores']``).
+
+        The loop dispatches graph k+1's forward before it fetches and cuts
+        graph k. With ``tpu.device_vote`` (default) the score matrix stays
+        on the device (:meth:`_cut_labels_device`); ``device_vote: false``
+        fetches it and cuts on the host (``ops.cutting.cutting``)."""
+        print("test thresholds")
+        since = time.time()
+        threshold_range = list(threshold_range)
+        for th in threshold_range:
+            self.dict_scores[th] = []
+
+        def finish(item) -> None:
+            gfile, gfile_notcut, host, handle = item
+            nbck, bck2, names, nbck_notcut, vert_notcut = host
+            if len(nbck) != len(nbck_notcut):
+                # alignment impossible (ref pattern_class.py:220-225)
+                print()
+                print("ERROR no matches between %s and %s"
+                      % (gfile, gfile_notcut))
+                print("--- Files ignored to fix the threshold")
+                print()
+                return
+            # align cut <-> uncut voxels by lexicographic order of their
+            # native coordinates (ref pattern_class.py:204-227)
+            order_cut = np.lexsort((nbck[:, 2], nbck[:, 1], nbck[:, 0]))
+            order_uncut = np.lexsort(
+                (nbck_notcut[:, 2], nbck_notcut[:, 1], nbck_notcut[:, 0]))
+            vert_aligned = np.empty(len(nbck), dtype=vert_notcut.dtype)
+            vert_aligned[order_cut] = vert_notcut[order_uncut]
+            if not threshold_range:
+                return
+            if self.tpu.device_vote:
+                per_th_ids = self._cut_labels_device(
+                    handle, vert_aligned, bck2, threshold_range)
+            else:
+                _, _, yscores = self._labeling_fetch(handle)
+                per_th_ids = (cutting(yscores, vert_aligned, bck2, th)
+                              for th in threshold_range)
+            for th, ids in zip(threshold_range, per_th_ids):
+                ypred_cut = [self.sulci_side_list[y] for y in ids]
+                self.dict_scores[th].append(
+                    (1 - esi_score(names, ypred_cut, self.sslist)) * 100)
+
+        pending = []
+        for gfile, gfile_notcut in zip(gfile_list_test, gfile_list_notcut_test):
+            # dispatch first: the card works on this graph while the host
+            # reads and extracts the pair below
+            handle = self._labeling_dispatch(gfile)
+            data = self._read_graph_data(gfile)
+            data_notcut = self._read_graph_data(gfile_notcut)
+            pending.append((
+                gfile, gfile_notcut,
+                (np.asarray(data["nbck"]), np.asarray(data["bck2"]),
+                 np.asarray(data["names"]), np.asarray(data_notcut["nbck"]),
+                 np.asarray(data_notcut["vert"])),
+                handle,
+            ))
+            if len(pending) > 1:
+                finish(pending.pop(0))
+        for item in pending:
+            finish(item)
+
+        if save_results:
+            for th, sc in self.dict_scores.items():
+                self.results["threshold_scores"].setdefault(th, []).append(sc)
+
+        elapsed = time.time() - since
+        print("Cutting complete in {:.0f}m {:.0f}s".format(
+            elapsed // 60, elapsed % 60))
+
+    # ------------------------------------------------------------------
+    # persistence (ref pattern_class.py:281-343)
+    # ------------------------------------------------------------------
+    def _label_data(self) -> dict:
+        return {
+            "dict_bck2": {k: np.asarray(v).tolist()
+                          for k, v in self.dict_bck2.items()},
+            "dict_names": {k: np.asarray(v).tolist()
+                           for k, v in self.dict_names.items()},
+            "sulci_side_list": self.sulci_side_list,
+        }
+
+    def _model_path(self, name: Optional[str]) -> str:
+        if name is None:
+            return op.join(self.working_path, "models",
+                           self.model_name + "_model.mdsm")
+        return op.join(self.working_path, "models", self.model_name,
+                       name + "_model.mdsm")
+
+    def save_data(self, name: Optional[str] = None) -> None:
+        os.makedirs(op.join(self.working_path, "data"), exist_ok=True)
+        fname = (self.model_name + ".json" if name is None
+                 else name + "_data.json")
+        with open(op.join(self.working_path, "data", fname), "w") as f:
+            json.dump(self._label_data(), f)
+        print("Data saved")
+
+    def save_model(self, name: Optional[str] = None) -> None:
+        """The model's f32 ``state_dict`` as ``.mdsm`` (``torch.save``)."""
+        path = self._model_path(name)
+        os.makedirs(op.dirname(path), exist_ok=True)
+        torch.save({k: v.detach().to("cpu", torch.float32)
+                    for k, v in self.model.state_dict().items()}, path)
+        print("Model saved")
+
+    def save_results(self, name: Optional[str] = None) -> None:
+        os.makedirs(op.join(self.working_path, "results"), exist_ok=True)
+        fname = (name or self.model_name) + "_results.json"
+        with open(op.join(self.working_path, "results", fname), "w") as f:
+            json.dump(self.results, f)
+        print("Results saved")
+
+    def save_params(self, best_threshold=None,
+                    name: Optional[str] = None) -> None:
+        os.makedirs(op.join(self.working_path, "models"), exist_ok=True)
+        self.dict_model["model_file"] = self._model_path(name)
+        self.dict_model["out_channels"] = len(self.sulci_side_list)
+        params = {**self._label_data(), "dict_model": self.dict_model}
+        if best_threshold is not None:
+            params["cutting_threshold"] = best_threshold
+        base = op.join(self.working_path, "models", self.model_name)
+        if not op.exists(base):
+            base = op.join(self.working_path, "models")
+        fname = (name or self.model_name) + "_params.json"
+        with open(op.join(base, fname), "w") as f:
+            json.dump(params, f)
+        print("Parameters saved")
+
+    def reset_results(self) -> None:
+        self.results = {}
 
     # ------------------------------------------------------------------
     # checkpoint loading (ref pattern_class.py:348-368)

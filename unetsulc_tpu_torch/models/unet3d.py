@@ -483,19 +483,24 @@ class UNet3D(nn.Module):
             return list(self.final_conv)
         return [self.final_conv]
 
-    def fused_eligible(self, x: torch.Tensor) -> bool:
-        """Whether ``x`` takes the fused path (module docstring)."""
+    def fused_config(self) -> bool:
+        """Whether the model's configuration takes the fused path, for a
+        batch-1 input of extents >= 4 (the static half of
+        :meth:`fused_eligible`)."""
         return bool(
             self.fused_blocks
-            and x.shape[0] == 1
             and self.dropout == 0
             and self.conv_layer_order == "crg"
             and self.interpolate
             and self.in_channels <= 8
-            and min(x.shape[1:4]) >= 4
             and (self.compute_dtype == torch.bfloat16
                  or self.device.type == "cpu")
         )
+
+    def fused_eligible(self, x: torch.Tensor) -> bool:
+        """Whether ``x`` takes the fused path (module docstring)."""
+        return (self.fused_config() and x.shape[0] == 1
+                and min(x.shape[1:4]) >= 4)
 
     def precision(self):
         """The context the non-fused path runs in, backward included: TF32

@@ -343,6 +343,25 @@ def make_label_fn(model, final_sigmoid: bool = False) -> Callable:
     return label
 
 
+def make_predict_fn(model, apply_activation: bool = True,
+                    final_sigmoid: bool = False) -> Callable:
+    """``predict(inputs (N, X, Y, Z, C)) -> (N, X, Y, Z, classes)`` f32:
+    the inference forward without autograd, dropout off, then the model's
+    final activation (sigmoid or softmax per ``final_sigmoid``) unless
+    ``apply_activation`` is False (the JAX package's ``make_predict_fn``;
+    ref pattern_class.py:266 ``self.model.eval()``)."""
+
+    @torch.no_grad()
+    def predict(inputs: torch.Tensor) -> torch.Tensor:
+        logits = model(inputs, train=False, apply_final_activation=False)
+        if apply_activation:
+            logits = (torch.sigmoid(logits) if final_sigmoid
+                      else torch.softmax(logits, -1))
+        return logits
+
+    return predict
+
+
 def make_vote_fn() -> Callable:
     """``vote(scores (n, C), part_ids (T, n) long, num_parts) -> (T,
     num_parts) long``: for every threshold's re-segmentation
