@@ -31,13 +31,16 @@ order (each phase aborts the script with a non-zero exit on failure):
 7. profiles one flagship forward: device time by kernel, the device's
    busy share, peak device memory;
 8. holds the backward kernels against their plain versions at the four
-   flagship levels and one shape with channel tails: kernel C
+   flagship levels, one shape with channel tails, one at the edges of
+   kernels C and D's tiles (13 x 49 x 49, 96+160->48) and two with deep Z
+   (200, 240: D's shorter steps, C's one-dy runs): kernel C
    (``conv3x3x3_dx``) |k - p| <= 2^-7 |p| + 1e-3 max|p| with its sums at
    rtol 1e-3, atol 1e-3 max|p| and a zero ring; kernel D
    (``conv3x3x3_wgrad``) rtol 1e-3, atol 1e-3 max|p|; kernel E
    (``max_pool_buf_bwd``) dx bit-equal, d(affine) rtol 1e-3, atol 1e-3
    max|p| (gradients are small, so every atol is relative to the largest
-   magnitude of the tensor);
+   magnitude of the tensor); two launches of C and of D on the same
+   inputs bit-equal;
 9. drives the training step of the flagship model (seed 0) on
    ``bench.py``'s batch (numpy seed 0, 2% of 96^3 voxels occupied, labels
    0..62 there, -1 elsewhere), SGD lr 0.01, momentum 0.9, through
@@ -54,10 +57,13 @@ order (each phase aborts the script with a non-zero exit on failure):
    a profile of one step; and a ``training_layers=["final_conv"]`` step
    that launches no backward kernel and leaves the trunk bit-identical;
 10. holds every launch of kernels C, D and E in one training step
-   (recorded inputs) against its plain version at phase 8's tolerances
-   and times it as phase 6 does, against one library call
-   (``aten.convolution_backward`` in bf16, channels-last, for C and D;
-   ``max_pool3d_with_indices_backward`` for E) and its bound;
+   (recorded inputs) against its plain version at phase 8's tolerances,
+   and two launches of C and of D bit-equal, and times it as phase 6
+   does, against one library call (``aten.convolution_backward`` in bf16,
+   channels-last, for C and D; ``max_pool3d_with_indices_backward`` for
+   E) and its bound, printing its share of the bound; D's library call is
+   also timed on the batch-stride-C view that earlier versions of phases
+   10 and 18 gave it (PERF.md §7);
 12. holds the four GroupNorm kernels (``gn_stats``, ``gn_apply``,
    ``gn_bwd_reduce``, ``gn_bwd_dx``) against their plain versions at the 14
    GroupNorms of the flagship non-fused forward (bf16, G 32), one in f32
@@ -83,7 +89,9 @@ order (each phase aborts the script with a non-zero exit on failure):
    (48 x 96 x 96 slabs; 32->64, 32->32 and the decoder's 64+128->64; an
    edge shard's valid pattern on each side and an interior one) and the
    slab+E layout of level 1 at space 4 (13 planes of 49 x 49, odd Xp 15,
-   valid_out on the last and an inner shard), at phases 3 and 8's bars;
+   valid_out on the last and an inner shard, and a tile-edge case of
+   96+160->48 channels), at phases 3 and 8's bars, with two launches of C
+   and of D bit-equal;
 17. drives the spatial-parallel training step
    (``parallel.make_mesh(space=n, devices=[cuda] * n)``,
    ``make_train_step_sp``) of the flagship on phase 9's batch at space 2
@@ -95,10 +103,11 @@ order (each phase aborts the script with a non-zero exit on failure):
    measured the same way from the same state; a profile of one step; one
    ``make_eval_step_sp`` call;
 18. holds every halo-mode launch of one space-2 sp step (recorded inputs)
-   against its plain version and times it against the same launch without
-   halo, its plain version, one library call on the halo-filled slab
-   (cuDNN ``conv3d`` with padding (0, 1, 1); ``aten.convolution_backward``
-   with that padding) and its bound;
+   against its plain version (and two launches of C and of D bit-equal)
+   and times it against the same launch without halo, its plain version,
+   one library call on the halo-filled slab (cuDNN ``conv3d`` with
+   padding (0, 1, 1); ``aten.convolution_backward`` with that padding)
+   and its bound, printing its share of the bound;
 19. holds the three probe kernels (``mxu_dot``, ``mxu_rdot``,
    ``slab_build``; ``csrc/mxu_probe.cu``) against their plain versions at
    the JAX probe's shapes (ps 10976, 200 reps, its 11 + 6 + 6
@@ -242,10 +251,30 @@ def timed_row(name, shape, kern, plain, lib, bound, err):
                plain_ms=statistics.median(ms_p),
                library_ms=statistics.median(ms_l), bound_ms=bound,
                max_abs_err=err)
-    print(f"  {name} {shape}: kernel {row['ms']:.4f} ms, plain "
+    print(f"  {name} {shape}: kernel {row['ms']:.4f} ms "
+          f"({bound / row['ms'] * 100:.1f}% of its bound), plain "
           f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} "
           f"ms, bound {bound:.4f} ms, max|err| {err:.3g}", flush=True)
     return row
+
+
+def graph_ms(fn):
+    """Device time of one call of ``fn`` in ms, as timed_row times each of
+    its calls (a CUDA graph replayed REPS times between CUDA events; the
+    median of three turns)."""
+    graph = capture(fn)
+    sync()
+    ms = statistics.median(event_ms(graph, REPS) for _ in range(3))
+    del graph
+    return ms
+
+
+def bit_equal(out_a, out_b):
+    """Whether two launches' outputs (tensors or tuples of them) agree bit
+    for bit."""
+    if isinstance(out_a, torch.Tensor):
+        out_a, out_b = (out_a,), (out_b,)
+    return all(torch.equal(a, b) for a, b in zip(out_a, out_b))
 
 
 def rand_buffer(g, c, gen, dev):
@@ -354,16 +383,31 @@ def pool_bwd_bound(buf):
     return max(ops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES) * 1e3
 
 
-def conv_bwd_library_call(x, aff, dconv, weight_b, g, output_mask):
+def channels_last_5d(t4, batch_stride_c=False):
+    """An (X, Y, Z, C) tensor as the (1, C, X, Y, Z) channels-last input of
+    a library conv: a contiguous copy with torch.channels_last_3d strides.
+    With ``batch_stride_c``, the view ``permute(3, 0, 1, 2)[None]`` that
+    earlier versions of phases 10 and 18 used instead: its batch stride is
+    C, so PyTorch does not take it for channels-last, and for dW
+    (``convolution_backward`` with output_mask [False, True, False]) it
+    copies both operands to NCDHW, which cuDNN then transposes back
+    (PERF.md §7); dx and the forward conv were not affected."""
+    t4 = t4.contiguous()
+    return t4.permute(3, 0, 1, 2)[None] if batch_stride_c else \
+        t4[None].permute(0, 4, 1, 2, 3)
+
+
+def conv_bwd_library_call(x, aff, dconv, weight_b, g, output_mask,
+                          batch_stride_c=False):
     """cuDNN's conv3d backward (``aten.convolution_backward``) in bf16,
     channels-last, on the pre-normalized input: dx for output_mask
     [True, False, False], dW for [False, True, False] (a yardstick; the
-    port never calls it)."""
+    port never calls it). ``batch_stride_c``: see channels_last_5d."""
     from unetsulc_tpu_torch.ops import conv_fused as cf
 
     xn = torch.where(cf.interior_mask(g, x.device), cf.apply_affine(x, aff), 0)
-    inp = cf.unpad_from_geom(xn, g)[0].contiguous().permute(3, 0, 1, 2)[None]
-    go = cf.unpad_from_geom(dconv, g)[0].contiguous().permute(3, 0, 1, 2)[None]
+    inp = channels_last_5d(cf.unpad_from_geom(xn, g)[0], batch_stride_c)
+    go = channels_last_5d(cf.unpad_from_geom(dconv, g)[0], batch_stride_c)
     w = weight_b.to(torch.bfloat16).contiguous(
         memory_format=torch.channels_last_3d)
     return lambda: torch.ops.aten.convolution_backward(
@@ -847,6 +891,13 @@ def phase_backward_checks(dev):
         ("dec0.conv1 256+512->256 @25^3", (25, 25, 25), [256, 512], 256),
         ("enc3.conv2 256->512 @13^3", (13, 13, 13), [256], 512),
         ("tails 12+20->10 @7x9x5", (7, 9, 5), [12, 20], 10),
+        # the edges of kernels C and D's tiles: 13 planes of 49 x 49, two
+        # branches whose channels are not multiples of 64, Cout 48
+        ("edges 96+160->48 @13x49x49", (13, 49, 49), [96, 160], 48),
+        # deep Z: D's 128-position steps (Z beyond 189), and C's runs of
+        # one dy (Z beyond 225 at an N tile of 128)
+        ("deep 64->64 @3x5x200", (3, 5, 200), [64], 64),
+        ("deeper 128->128 @3x4x240", (3, 4, 240), [128], 128),
     ]
     for name, ext, cins, cout in cases:
         g = cf.make_geom(*ext)
@@ -865,6 +916,11 @@ def phase_backward_checks(dev):
             sync()
             e_c = check_dx(out_k, out_p, what)
             e_d = check_grad(wk, wp, 1e-3, f"kernel D ({what})")
+            check(bit_equal(out_k, cf.conv_dx(dconv, w, cins, b, affs[b],
+                                              xs[b], g)),
+                  f"kernel C: two launches differ ({what})")
+            check(bit_equal(wk, cf.conv_wgrad(xs[b], affs[b], dconv, g)),
+                  f"kernel D: two launches differ ({what})")
             worst["conv3x3x3_dx"] = max(worst["conv3x3x3_dx"], e_c)
             worst["conv3x3x3_wgrad"] = max(worst["conv3x3x3_wgrad"], e_d)
             print(f"  C {what}: max|ddx|={e_c:.3g} (max|dx| "
@@ -929,8 +985,10 @@ def kernel_class(key):
     """Which of the port's kernels a profiler entry is, or "plain"."""
     if "conv3x3x3_wgrad_kernel" in key:
         return "D"
+    if "conv3x3x3_dx_kernel" in key:
+        return "C"
     if "conv3x3x3_kernel" in key:
-        return "C" if ("<true>" in key or "<(bool)1>" in key) else "A"
+        return "A"
     if "max_pool_buf_bwd_kernel" in key:
         return "E"
     if "max_pool_buf_fwd_kernel" in key:
@@ -1149,7 +1207,10 @@ def phase_backward_timing(model, step, x, labels):
                                             [True, False, False])
                 bound = dx_bound(dconv, xb)
                 shape = f"{cins[br]}<-{int(w.shape[0])} @{g.X}x{g.Y}x{g.Z}"
-                err = check_dx(kern(), plain(), shape)
+                out = kern()
+                err = check_dx(out, plain(), shape)
+                check(bit_equal(out, kern()),
+                      f"kernel C: two launches differ ({shape})")
             elif name == "conv3x3x3_wgrad":
                 xb, aff, dconv, g = args[:4]
                 ci, co = int(xb.shape[3]), int(dconv.shape[3])
@@ -1159,7 +1220,15 @@ def phase_backward_timing(model, step, x, labels):
                     [False, True, False])
                 bound = wgrad_bound(xb, dconv)
                 shape = f"{ci}x{co} @{g.X}x{g.Y}x{g.Z}"
-                err = check_grad(kern(), plain(), 1e-3, f"kernel D {shape}")
+                out = kern()
+                err = check_grad(out, plain(), 1e-3, f"kernel D {shape}")
+                check(bit_equal(out, kern()),
+                      f"kernel D: two launches differ ({shape})")
+                # the yardstick as earlier versions of this phase built it
+                old_lib = graph_ms(conv_bwd_library_call(
+                    xb, aff, dconv,
+                    torch.zeros((co, ci, 3, 3, 3), device=xb.device), g,
+                    [False, True, False], batch_stride_c=True))
             else:
                 buf, aff, out, cot, g = args
                 lib = pool_bwd_library_call(buf, aff, cot, g)
@@ -1169,6 +1238,10 @@ def phase_backward_timing(model, step, x, labels):
             sync()
             rows[name].append(timed_row(name, shape, kern, plain, lib, bound,
                                         err))
+            if name == "conv3x3x3_wgrad":
+                rows[name][-1]["library_batch_stride_c_ms"] = old_lib
+                print(f"    library on the batch-stride-C view (the earlier "
+                      f"yardstick): {old_lib:.4f} ms", flush=True)
     return rows
 
 
@@ -1613,6 +1686,9 @@ def halo_check_cases(s0=48, p1=12, yz0=96, yz1=49):
          128, [1] * (p1 + 2) + [0], [0] + [1] * (p1 + 1) + [0]),
         ("dec1.conv1 128+256->128, slab+E inner shard", (p1 + 1, yz1, yz1),
          [128, 256], 128, [1] * (p1 + 3), [0] + [1] * p1 + [0, 0]),
+        # kernels C and D's tile edges: channels not multiples of 64
+        ("edges 96+160->48, slab+E first shard", (p1 + 1, yz1, yz1),
+         [96, 160], 48, [0] + [1] * (p1 + 2), [0] + [1] * (p1 + 1) + [0]),
     ]
 
 
@@ -1663,6 +1739,13 @@ def phase_halo_checks(dev, cases=None):
             sync()
             e_c = check_halo_dx(out_k, out_p, what)
             e_d = check_grad(wk, wp, 1e-3, f"kernel D halo ({what})")
+            check(bit_equal(out_k, cf.conv_dx(dconv, w, cins, b, affs[b],
+                                              xs[b], g, None, halos[b],
+                                              valid)),
+                  f"kernel C halo: two launches differ ({what})")
+            check(bit_equal(wk, cf.conv_wgrad(xs[b], affs[b], dconv, g,
+                                              halos[b], valid)),
+                  f"kernel D halo: two launches differ ({what})")
             worst["conv3x3x3_dx_halo"] = max(worst["conv3x3x3_dx_halo"], e_c)
             worst["conv3x3x3_wgrad_halo"] = max(worst["conv3x3x3_wgrad_halo"],
                                                 e_d)
@@ -1806,13 +1889,13 @@ def phase_sp_train(dev, single_peak_gb):
 
 
 def halo_filled_normalized(x, aff, halo, valid, g):
-    """The (1, C, Xp, Y, Z) channels-last view of the halo-filled input,
-    normalized under its validity: what a library conv reads."""
+    """The (1, C, Xp, Y, Z) channels-last input of a library conv: the
+    halo-filled input normalized under its validity."""
     from unetsulc_tpu_torch.ops import conv_fused as cf
 
     v = torch.where(cf.halo_mask(g, valid),
                     cf.apply_affine(cf.halo_filled(x, halo), aff), 0)
-    return v[:, 1:1 + g.Y, 1:1 + g.Z].permute(3, 0, 1, 2)[None]
+    return channels_last_5d(v[:, 1:1 + g.Y, 1:1 + g.Z])
 
 
 def halo_bound(kind, xs, cout, g, planes):
@@ -1857,7 +1940,8 @@ def timed_halo_row(name, shape, kern, nohalo, plain, lib, bound, err):
                plain_ms=statistics.median(ms["plain"]),
                library_ms=statistics.median(ms["lib"]), bound_ms=bound,
                max_abs_err=err)
-    print(f"  {name} {shape}: kernel {row['ms']:.4f} ms, without halo "
+    print(f"  {name} {shape}: kernel {row['ms']:.4f} ms "
+          f"({bound / row['ms'] * 100:.1f}% of its bound), without halo "
           f"{row['nohalo_ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
           f"library {row['library_ms']:.4f} ms, bound {bound:.4f} ms, "
           f"max|err| {err:.3g}", flush=True)
@@ -1932,8 +2016,7 @@ def phase_halo_timing(model, step, xs, ls):
                     mask, kind, planes = [False, True, False], \
                         "conv3x3x3_wgrad_halo", g.X
                 inp = halo_filled_normalized(xb, aff, halo, valid, g)
-                go = cf.unpad_from_geom(dconv, g)[0].contiguous().permute(
-                    3, 0, 1, 2)[None]
+                go = channels_last_5d(cf.unpad_from_geom(dconv, g)[0])
                 wl = wb.to(torch.bfloat16).contiguous(
                     memory_format=torch.channels_last_3d)
                 lib = lambda: torch.ops.aten.convolution_backward(  # noqa: E731
@@ -1941,11 +2024,14 @@ def phase_halo_timing(model, step, xs, ls):
                     [0, 0, 0], 1, mask)
                 bound = halo_bound(kind, [xb], co, g, planes)
                 shape = f"{ci}x{co} @{g.X}x{g.Y}x{g.Z}"
+                out = kern()
                 if name == "conv3x3x3_dx":
-                    err = check_halo_dx(kern(), plain(), shape)
+                    err = check_halo_dx(out, plain(), shape)
                 else:
-                    err = check_grad(kern(), plain(), 1e-3,
+                    err = check_grad(out, plain(), 1e-3,
                                      f"kernel D halo {shape}")
+                check(bit_equal(out, kern()),
+                      f"{kind}: two launches differ ({shape})")
             sync()
             rows[kind].append(timed_halo_row(kind, shape, kern, nohalo, plain,
                                              lib, bound, err))
@@ -2400,7 +2486,7 @@ def main():
         "max_pool_buf_fwd": ("unetsulc_tpu_torch/csrc/max_pool_buf_fwd.cu",
                              "unetsulc_tpu/ops/conv_pallas.py:1653", "bytes",
                              "one 96^3 flagship forward"),
-        "conv3x3x3_dx": ("unetsulc_tpu_torch/csrc/conv3x3x3_fwd.cu",
+        "conv3x3x3_dx": ("unetsulc_tpu_torch/csrc/conv3x3x3_dx.cu",
                          "unetsulc_tpu/ops/conv_pallas.py:370", "operations",
                          "one 96^3 flagship training step"),
         "conv3x3x3_wgrad": ("unetsulc_tpu_torch/csrc/conv3x3x3_wgrad.cu",
@@ -2424,7 +2510,7 @@ def main():
         "conv3x3x3_fwd_halo": ("unetsulc_tpu_torch/csrc/conv3x3x3_fwd.cu",
                                "unetsulc_tpu/ops/conv_pallas.py:370",
                                "operations", sp_cover),
-        "conv3x3x3_dx_halo": ("unetsulc_tpu_torch/csrc/conv3x3x3_fwd.cu",
+        "conv3x3x3_dx_halo": ("unetsulc_tpu_torch/csrc/conv3x3x3_dx.cu",
                               "unetsulc_tpu/ops/conv_pallas.py:370",
                               "operations", sp_cover),
         "conv3x3x3_wgrad_halo": ("unetsulc_tpu_torch/csrc/conv3x3x3_wgrad.cu",
@@ -2459,6 +2545,9 @@ def main():
         if name in HALO_KERNELS:
             extra = dict(launches_space4=sp_runs[4]["launches"][name],
                          nohalo_ms=sum(r["nohalo_ms"] for r in rs))
+        if name == "conv3x3x3_wgrad":
+            extra = dict(library_batch_stride_c_ms=sum(
+                r["library_batch_stride_c_ms"] for r in rs))
         line.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces,

@@ -41,6 +41,7 @@ from unetsulc_tpu_torch import main as port_main
 from unetsulc_tpu_torch.method.training import TrainingSulciLabeller
 from unetsulc_tpu_torch.method.transfer import TransferSulciLabeller
 from unetsulc_tpu_torch.models.interop import state_dict_from_jax_params
+from torch_threads import torch_one_thread  # noqa: F401,E402
 
 TPU = {"compute_dtype": "float32", "prefetch": 0, "pallas_blocks": False}
 TRAIN = {

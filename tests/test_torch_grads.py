@@ -20,6 +20,7 @@ import torch
 import unetsulc_tpu.ops.conv_pallas as cp
 from unetsulc_tpu_torch import kernels
 from unetsulc_tpu_torch.ops import conv_fused as cf
+from torch_threads import torch_one_thread  # noqa: F401,E402
 
 
 def _t(a):

@@ -22,6 +22,7 @@ import unetsulc_tpu.ops.attic.groupnorm_pallas_chunked as gnc
 import unetsulc_tpu.ops.groupnorm_pallas as gnp
 from unetsulc_tpu.ops.groupnorm import group_norm as jax_group_norm
 from unetsulc_tpu_torch.ops import groupnorm as tgn
+from torch_threads import torch_one_thread  # noqa: F401,E402
 
 SHAPES = [((2, 5, 4, 3, 16), 8), ((1, 7, 7, 7, 32), 32)]
 IDS = ["2x5x4x3x16-g8", "1x7x7x7x32-g32"]

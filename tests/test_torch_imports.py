@@ -9,6 +9,7 @@ from pathlib import Path
 
 import pytest
 import torch
+from torch_threads import torch_one_thread  # noqa: F401,E402
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "unetsulc_tpu_torch"

@@ -33,6 +33,7 @@ from unetsulc_tpu_torch.data.voxelize import bucket_size
 from unetsulc_tpu_torch.io.container import read_graph
 from unetsulc_tpu_torch.method.base import SulciLabeller
 from unetsulc_tpu_torch.models.unet3d import UNet3D
+from torch_threads import torch_one_thread  # noqa: F401,E402
 
 LABELS = ["S.C._left", "S.T.s._left", "F.C.M._left", "unknown"]
 THRESHOLDS = [5, 20]

@@ -45,6 +45,7 @@ from unetsulc_tpu_torch.models.unet3d import UNet3D
 from unetsulc_tpu_torch.train import controllers
 from unetsulc_tpu_torch.train.checkpoint import TrainCheckpointer
 from unetsulc_tpu_torch.train.step import TrainState, make_predict_fn
+from torch_threads import torch_one_thread  # noqa: F401,E402
 
 SMALL = {"name": "M", "num_filter": 4}
 # f32, synchronous loading, the non-fused path (cuDNN's place on the CPU:

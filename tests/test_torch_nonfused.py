@@ -51,6 +51,7 @@ from unetsulc_tpu_torch.train.step import (
     make_eval_step,
     make_train_step,
 )
+from torch_threads import torch_one_thread  # noqa: F401,E402
 
 CLASSES = 7
 BASE = dict(out_channels=CLASSES, init_channel_number=8)

@@ -17,6 +17,7 @@ import unetsulc_tpu.ops.conv_pallas as cp
 from unetsulc_tpu.ops.resize import resize_trilinear_buf as jax_resize_buf
 from unetsulc_tpu_torch.ops import conv_fused as cf
 from unetsulc_tpu_torch.ops.resize import resize_trilinear_buf
+from torch_threads import torch_one_thread  # noqa: F401,E402
 
 
 def _t(a):

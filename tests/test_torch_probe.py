@@ -25,6 +25,7 @@ from jax.experimental.pallas import tpu as pltpu
 from unetsulc_tpu_torch import kernels
 from unetsulc_tpu_torch.tools import mxu_probe
 from unetsulc_tpu_torch.utils import profiling
+from torch_threads import torch_one_thread  # noqa: F401,E402
 
 SCRIPT = Path(__file__).resolve().parents[1] / "scripts" / "mxu_probe.py"
 

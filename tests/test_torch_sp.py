@@ -21,6 +21,7 @@ import torch
 import unetsulc_tpu.ops.conv_pallas as cp
 from torch_sp_layout import Y, Z, as_torch, from_jax, jax_affine, jax_geom, to_jax
 from unetsulc_tpu_torch.ops import conv_fused as cf
+from torch_threads import torch_one_thread  # noqa: F401,E402
 
 
 # ---------------------------------------------------------------------------

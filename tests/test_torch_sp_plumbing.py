@@ -23,6 +23,7 @@ from unetsulc_tpu.parallel import sp_pallas as jsp
 from unetsulc_tpu.parallel.mesh import make_mesh as jax_make_mesh
 from unetsulc_tpu_torch.ops import conv_fused as cf
 from unetsulc_tpu_torch.parallel import sp_fused as sp
+from torch_threads import torch_one_thread  # noqa: F401,E402
 
 
 # ---------------------------------------------------------------------------

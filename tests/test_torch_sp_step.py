@@ -51,6 +51,7 @@ from unetsulc_tpu_torch.train.step import (
     make_train_step,
     make_train_step_sp,
 )
+from torch_threads import torch_one_thread  # noqa: F401,E402
 
 MODEL = dict(in_channels=1, out_channels=3, init_channel_number=8)
 LR = 0.05

@@ -36,6 +36,7 @@ from unetsulc_tpu_torch.train.step import (
     make_eval_step,
     make_train_step,
 )
+from torch_threads import torch_one_thread  # noqa: F401,E402
 
 MODEL = dict(in_channels=1, out_channels=5, init_channel_number=8)
 SHAPE = (9, 8, 10)

@@ -21,6 +21,7 @@ from unetsulc_tpu.models.torch_interop import (
 from unetsulc_tpu.models.unet3d import UNet3D as JaxUNet3D
 from unetsulc_tpu_torch.models.interop import load_mdsm, state_dict_from_jax_params
 from unetsulc_tpu_torch.models.unet3d import UNet3D
+from torch_threads import torch_one_thread  # noqa: F401,E402
 
 MODEL = dict(in_channels=1, out_channels=5, init_channel_number=8)
 

@@ -1,15 +1,13 @@
 // Fused 'crg' conv block forward for Hopper (sm_90a): lazy-GroupNorm
 // prologue -> 3x3x3 conv (implicit GEMM on bf16 tensor cores) -> bias ->
-// ReLU -> per-channel stat sums, over a padded channels-last buffer; and,
-// from the same tile loop, the block's input-gradient (dx) pass.
+// ReLU -> per-channel stat sums, over a padded channels-last buffer.
 //
 // Replaces: unetsulc_tpu/ops/conv_pallas.py `_fwd_kernel` in forward mode
 // (launched by `conv_shards`, reached through `fused_conv_block`) as
-// `conv3x3x3_fwd` (kernel A), and `_fwd_kernel` in post (dx) mode
-// (`conv_shards(post_ab=..., post_x=...)` from `_fused_bwd`) as
-// `conv3x3x3_dx` (kernel C); their spatial-parallel modes (`conv_shards`'s
-// `halo`, `valid_in`, `valid_out` and `edge_outputs`) as
-// `conv3x3x3_fwd_halo` and `conv3x3x3_dx_halo`.
+// `conv3x3x3_fwd` (kernel A), and its spatial-parallel modes
+// (`conv_shards`'s `halo`, `valid_in` and `valid_out`) as
+// `conv3x3x3_fwd_halo`. The post (dx) mode of `_fwd_kernel` is kernel C,
+// `conv3x3x3_dx.cu`.
 //
 // Layout. Each input is a padded channels-last buffer (X+2, Y+2, Z+2, C)
 // bf16 whose 1-voxel ring is the conv's zero padding; `ab` is the pending
@@ -31,18 +29,6 @@
 // input's channel rows zero-padded to a multiple of BK and Cout to a
 // multiple of BN, so B tiles load without bounds checks.
 //
-// dx mode (kernel C, template flag DX). The input is the conv's cotangent
-// dconv = 1[y > 0] * (dy + ds0 + 2 y ds1) in bf16, whose ring is exactly
-// 0, read without an affine; the weights are one branch's mirrored and
-// transposed taps, Wt[tap][co][ci] = W[ci][co][26 - tap] (packed by the
-// wrapper in the same layout), so the tile loop computes the transposed
-// conv dxn = conv^T(dconv, W) for that branch's Cin channels. No bias and
-// no ReLU. The epilogue takes the f32 dxn of each interior voxel and adds
-// sum(post_x * dxn) and sum(dxn) per channel into `sums` (post_x: the
-// branch's raw bf16 forward input), then writes bf16(dxn * a) (a: row 0
-// of the branch's forward affine): the gradients of x and of its affine,
-// as conv_pallas.py:519-545 does.
-//
 // Spatial-parallel (halo) modes, for a shard's slab of the volume along X
 // (`unetsulc_tpu_torch/parallel/sp_fused.py`). The two X ring planes of an
 // input are its neighbours' boundary planes, passed as two separate
@@ -54,22 +40,13 @@
 // +b: `_norm_plane`'s runtime-valid path, conv_pallas.py:293-315); output
 // planes where `valid_out` is 0 (a duplicated neighbour plane that
 // another shard owns) are written as 0 and left out of the sums, once, in
-// the epilogue of the one launch that takes both decoder inputs. Kernel C
-// (`conv3x3x3_dx_halo`, `edge_outputs`) computes dxn at the two X ring
-// planes as well (M grows from X*Y*Z to (X+2)*Y*Z rows; dconv is 0 on its
-// ring, so reads past it are 0): ring-plane dx is the gradient of the
-// neighbours' planes, written to the separate outputs `dlo` and `dhi`.
-// Its cross-stats weigh each plane by valid (post_x's ring planes are the
-// forward's `lo` and `hi`), and dx is 0 on invalid planes, as
-// `_fused_bwd`'s halo branch (conv_pallas.py:1405-1425) does in a
-// separate XLA pass.
+// the epilogue of the one launch that takes both decoder inputs.
 //
 // What bounds it on this card: operations. At the flagship 96^3 shapes a
 // launch does 2 * voxels * 27 * Cin * Cout FLOP (0.59 TFLOP for decoder
 // 2's 192->64 pair conv) against ~0.3 GB of traffic, far above the
 // ~295 FLOP/byte ridge of the H100, so the floor is the bf16 tensor-core
-// rate; the dx pass does the same FLOP as its branch's forward. This
-// first version is the simple one: nvcuda::wmma 16x16x16 bf16
+// rate. This first version is the simple one: nvcuda::wmma 16x16x16 bf16
 // fragments fed from shared memory, one K step per __syncthreads pair, no
 // cp.async/TMA pipeline and no wgmma; it reaches a fraction of that rate
 // (PERF.md). The sums reduce over the block's rows in shared memory into
@@ -142,22 +119,16 @@ __device__ __forceinline__ __nv_bfloat16 norm_bf16(__nv_bfloat16 v, float a,
   return __float2bfloat16(__fadd_rn(__fmul_rn(__bfloat162float(v), a), b));
 }
 
-// DX = false: kernel A (bias, ReLU, stat sums). DX = true: kernel C
-// (`bias` unused; `post_a`, `post` give the cross-stats and the scale).
-// `edge` (kernel C in halo mode): the rows cover padded planes 0..X+1, not
-// 1..X. `row_valid` (or nullptr): rows whose padded output plane p has
-// row_valid[p] == 0 are not written and add nothing to the sums (kernel A:
-// valid_out; kernel C: the branch's valid). Block (bx, by) writes its
-// channels' two sums to partial[bx][0][n] and partial[bx][1][n], a
-// (gridDim.x, 2, cout) array that the launcher folds into the sums.
-template <bool DX>
+// Kernel A: bias, ReLU, stat sums. `row_valid` (or nullptr): rows whose
+// padded output plane p has row_valid[p] == 0 (valid_out) are not written
+// and add nothing to the sums. Block (bx, by) writes its channels' two
+// sums to partial[bx][0][n] and partial[bx][1][n], a (gridDim.x, 2, cout)
+// array that the launcher folds into the sums.
 __global__ void __launch_bounds__(THREADS)
     conv3x3x3_kernel(Input in0, Input in1, int n_inputs,
                      const __nv_bfloat16* __restrict__ w, int ktot, int npad,
-                     const float* __restrict__ bias,
-                     const float* __restrict__ post_a,
-                     Buf<const __nv_bfloat16> post, int cout, int X, int Y,
-                     int Z, int edge, const float* __restrict__ row_valid,
+                     const float* __restrict__ bias, int cout, int X, int Y,
+                     int Z, const float* __restrict__ row_valid,
                      Buf<__nv_bfloat16> out,
                      float* __restrict__ partial) {
   __shared__ __align__(128) unsigned char smem[SMEM_BYTES];
@@ -169,7 +140,7 @@ __global__ void __launch_bounds__(THREADS)
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const long long YZ = (long long)Y * Z;
-  const long long M = (long long)(edge ? X + 2 : X) * YZ;
+  const long long M = (long long)X * YZ;
   const long long m0 = (long long)blockIdx.x * BM;
   const int n0 = blockIdx.y * BN;
   const int Yp = Y + 2, Zp = Z + 2;
@@ -185,7 +156,7 @@ __global__ void __launch_bounds__(THREADS)
     vz = (int)(am % Z);
     const long long t = am / Z;
     vy = (int)(t % Y);
-    vx = (int)(t / Y) - (edge ? 1 : 0);
+    vx = (int)(t / Y);
   }
   // B loader: one K row and 16 of the BN columns per thread
   const int bk = tid >> 2;
@@ -209,7 +180,7 @@ __global__ void __launch_bounds__(THREADS)
       float a[16], b[16];
 #pragma unroll
       for (int j = 0; j < 16; ++j) {
-        const bool ok = !DX && cb + j < c;
+        const bool ok = cb + j < c;
         a[j] = ok ? in.ab[cb + j] : 0.0f;
         b[j] = ok ? in.ab[c + cb + j] : 0.0f;
       }
@@ -233,16 +204,13 @@ __global__ void __launch_bounds__(THREADS)
                   reinterpret_cast<const __nv_bfloat16*>(&u);
 #pragma unroll
               for (int j = 0; j < 8; ++j)
-                vals[g * 8 + j] =
-                    DX ? h[j] : norm_bf16(h[j], a[g * 8 + j], b[g * 8 + j]);
+                vals[g * 8 + j] = norm_bf16(h[j], a[g * 8 + j], b[g * 8 + j]);
             } else {
 #pragma unroll
               for (int j = 0; j < 8; ++j)
                 if (cg + j < c)
                   vals[g * 8 + j] =
-                      DX ? src[g * 8 + j]
-                         : norm_bf16(src[g * 8 + j], a[g * 8 + j],
-                                     b[g * 8 + j]);
+                      norm_bf16(src[g * 8 + j], a[g * 8 + j], b[g * 8 + j]);
             }
           }
         }
@@ -294,21 +262,20 @@ __global__ void __launch_bounds__(THREADS)
     const long long m = m0 + tid;
     int p = -1;
     if (m < M) {
-      p = (int)(m / YZ) + (edge ? 0 : 1);
+      p = (int)(m / YZ) + 1;
       if (row_valid != nullptr && row_valid[p] == 0.0f) p = -1;
     }
     s_plane[tid] = p;
   }
   __syncthreads();
 
-  // bias + ReLU (kernel A) or the raw dxn (kernel C); rows past the
-  // volume or masked out, and columns past Cout, become 0 so they add
-  // nothing to the sums
+  // bias + ReLU; rows past the volume or masked out, and columns past
+  // Cout, become 0 so they add nothing to the sums
   for (int idx = tid; idx < BM * BN; idx += THREADS) {
     const int r = idx / BN, n = idx % BN;
     float v = 0.0f;
     if (s_plane[r] >= 0 && n0 + n < cout)
-      v = DX ? sC[r * LDC + n] : fmaxf(sC[r * LDC + n] + bias[n0 + n], 0.0f);
+      v = fmaxf(sC[r * LDC + n] + bias[n0 + n], 0.0f);
     sC[r * LDC + n] = v;
   }
   __syncthreads();
@@ -317,19 +284,8 @@ __global__ void __launch_bounds__(THREADS)
     float s0 = 0.0f, s1 = 0.0f;
     for (int r = 0; r < BM; ++r) {
       const float v = sC[r * LDC + tid];
-      if (DX) {
-        const int p = s_plane[r];
-        if (p < 0) continue;
-        const long long yz = (m0 + r) % YZ;
-        const int oy = (int)(yz / Z), oz = (int)(yz % Z);
-        const float px = __bfloat162float(
-            post.at(p, oy + 1, oz + 1, X, Yp, Zp)[n0 + tid]);
-        s0 += v * px;
-        s1 += v;
-      } else {
-        s0 += v;
-        s1 += v * v;
-      }
+      s0 += v;
+      s1 += v * v;
     }
     float* row = partial + (long long)blockIdx.x * 2 * cout;
     row[n0 + tid] = s0;
@@ -351,11 +307,11 @@ __global__ void __launch_bounds__(THREADS)
       __align__(16) __nv_bfloat16 o[8];
 #pragma unroll
       for (int j = 0; j < 8; ++j)
-        o[j] = __float2bfloat16(DX ? s[j] * post_a[n + j] : s[j]);
+        o[j] = __float2bfloat16(s[j]);
       *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(o);
     } else {
       for (int j = 0; j < 8 && n + j < cout; ++j)
-        dst[j] = __float2bfloat16(DX ? s[j] * post_a[n + j] : s[j]);
+        dst[j] = __float2bfloat16(s[j]);
     }
   }
 }
@@ -401,38 +357,12 @@ int launch_fwd(const void* x1, const float* ab1, int c1, const void* lo1,
   const int ktot = in0.cpad + (n_inputs > 1 ? in1.cpad : 0);
   const long long M = (long long)X * Y * Z;
   const dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)(npad / BN));
-  const Buf<const __nv_bfloat16> none{nullptr, nullptr, nullptr, nullptr, 0};
   const Buf<__nv_bfloat16> out{static_cast<__nv_bfloat16*>(y), nullptr,
                                nullptr, nullptr, cout};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  conv3x3x3_kernel<false><<<grid, THREADS, 0, st>>>(
+  conv3x3x3_kernel<<<grid, THREADS, 0, st>>>(
       in0, in1, n_inputs, static_cast<const __nv_bfloat16*>(w), ktot, npad,
-      bias, nullptr, none, cout, X, Y, Z, 0, valid_out, out, ws);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  return (int)fold_sums(ws, M, cout, sums, st);
-}
-
-int launch_dx(const void* dconv, int c, const void* w, int npad,
-              const float* post_a, const void* post_x, const void* post_lo,
-              const void* post_hi, const float* valid, int cout, int X, int Y,
-              int Z, void* dx, void* dlo, void* dhi, float* sums, float* ws,
-              void* stream) {
-  const Input in0 = make_input(dconv, nullptr, c, nullptr, nullptr, nullptr, 0);
-  const int edge = valid != nullptr ? 1 : 0;
-  const long long M = (long long)(X + 2 * edge) * Y * Z;
-  const dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)(npad / BN));
-  const Buf<const __nv_bfloat16> post{
-      static_cast<const __nv_bfloat16*>(post_x),
-      static_cast<const __nv_bfloat16*>(post_lo),
-      static_cast<const __nv_bfloat16*>(post_hi), valid, cout};
-  const Buf<__nv_bfloat16> out{static_cast<__nv_bfloat16*>(dx),
-                               static_cast<__nv_bfloat16*>(dlo),
-                               static_cast<__nv_bfloat16*>(dhi), valid, cout};
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  conv3x3x3_kernel<true><<<grid, THREADS, 0, st>>>(
-      in0, in0, 1, static_cast<const __nv_bfloat16*>(w), in0.cpad, npad,
-      nullptr, post_a, post, cout, X, Y, Z, edge, valid, out, ws);
+      bias, cout, X, Y, Z, valid_out, out, ws);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return (int)fold_sums(ws, M, cout, sums, st);
@@ -440,11 +370,10 @@ int launch_dx(const void* dconv, int c, const void* w, int npad,
 
 }  // namespace
 
-// f32 workspace of one launch of kernel A or C (either mode) over an
-// X x Y x Z interior with cout output channels; `edge` is kernel C's halo
-// mode. -1 if it does not fit an int.
-extern "C" int conv3x3x3_sums_ws(int cout, int X, int Y, int Z, int edge) {
-  const long long M = (long long)(X + (edge ? 2 : 0)) * Y * Z;
+// f32 workspace of one launch of kernel A (either mode) over an X x Y x Z
+// interior with cout output channels. -1 if it does not fit an int.
+extern "C" int conv3x3x3_sums_ws(int cout, int X, int Y, int Z) {
+  const long long M = (long long)X * Y * Z;
   const long long n = sums_ws_floats(M, cout);
   return n > 0x7fffffffLL ? -1 : (int)n;
 }
@@ -476,37 +405,6 @@ extern "C" int conv3x3x3_fwd_halo(
   return launch_fwd(x1, ab1, c1, lo1, hi1, v1, x2, ab2, c2, lo2, hi2, v2,
                     n_inputs, w, npad, bias, cout, X, Y, Z, valid_out, y, sums,
                     ws, stream);
-}
-
-// Kernel C: dconv (X+2, Y+2, Z+2, c) bf16 -> dx (X+2, Y+2, Z+2, cout) bf16
-// = bf16(conv^T(dconv, W_branch) * post_a), sums (2, cout) f32 =
-// (sum post_x * dxn, sum dxn). w: the branch's mirrored, transposed
-// weights packed as (27, round_up(c, BK), npad) bf16; ws:
-// conv3x3x3_sums_ws(cout, X, Y, Z, 0) f32.
-extern "C" int conv3x3x3_dx(const void* dconv, int c, const void* w,
-                            int npad, const float* post_a, const void* post_x,
-                            int cout, int X, int Y, int Z, void* dx,
-                            float* sums, float* ws, void* stream) {
-  return launch_dx(dconv, c, w, npad, post_a, post_x, nullptr, nullptr,
-                   nullptr, cout, X, Y, Z, dx, nullptr, nullptr, sums, ws,
-                   stream);
-}
-
-// Kernel C in halo mode (`edge_outputs`): as conv3x3x3_dx, with dxn also
-// at padded planes 0 and X+1, written to dlo and dhi ((Y+2, Z+2, cout)
-// bf16, zeroed by the caller); post_x's planes 0 and X+1 are post_lo and
-// post_hi (the forward's halo planes, null where invalid); valid (X+2,)
-// f32 weighs each plane in the sums and zeroes dx on invalid planes; ws:
-// conv3x3x3_sums_ws(cout, X, Y, Z, 1) f32.
-extern "C" int conv3x3x3_dx_halo(const void* dconv, int c, const void* w,
-                                 int npad, const float* post_a,
-                                 const void* post_x, const void* post_lo,
-                                 const void* post_hi, const float* valid,
-                                 int cout, int X, int Y, int Z, void* dx,
-                                 void* dlo, void* dhi, float* sums,
-                                 float* ws, void* stream) {
-  return launch_dx(dconv, c, w, npad, post_a, post_x, post_lo, post_hi, valid,
-                   cout, X, Y, Z, dx, dlo, dhi, sums, ws, stream);
 }
 
 extern "C" int conv3x3x3_fwd_tile_k() { return BK; }

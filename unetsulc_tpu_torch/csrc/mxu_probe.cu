@@ -1,7 +1,7 @@
 // Matrix-unit probe for Hopper (sm_90a): how far the bf16 wmma path of
-// kernels A, C and D gets at the flagship's conv shapes, apart from their
-// loads and pipeline; and the cost of the slab-build pattern in shared
-// memory.
+// kernel A (and of kernels C and D before their wgmma designs) gets at the
+// flagship's conv shapes, apart from their loads and pipeline; and the
+// cost of the slab-build pattern in shared memory.
 //
 // Replaces the three Pallas kernels of scripts/mxu_probe.py:
 //   mxu_dot    <- `dot_kernel`   (scripts/mxu_probe.py:24, pallas_call :38)

@@ -1,7 +1,10 @@
 """The port's hand-written CUDA kernels: build, binding, launch wrappers.
 
-Twelve kernels in six sources: A ``conv3x3x3_fwd`` and C ``conv3x3x3_dx``
-(one template, ``conv3x3x3_fwd.cu``), D ``conv3x3x3_wgrad``, B
+Twelve kernels in seven sources: A ``conv3x3x3_fwd``
+(``conv3x3x3_fwd.cu``), C ``conv3x3x3_dx`` (``conv3x3x3_dx.cu``) and D
+``conv3x3x3_wgrad`` (``conv3x3x3_wgrad.cu``), both on ``wgmma`` with
+their tile constants, weight packing and plans mirrored in
+:mod:`unetsulc_tpu_torch.kernels.layout`, B
 ``max_pool_buf_fwd``, E ``max_pool_buf_bwd``, and the GroupNorm kernels
 ``gn_stats``, ``gn_apply``, ``gn_bwd_reduce`` and ``gn_bwd_dx``
 (``group_norm.cu``), and the three probe kernels ``mxu_dot``, ``mxu_rdot``
@@ -47,11 +50,15 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from . import layout
+from .layout import mirror_transpose, pack_conv_weights_dx  # noqa: F401
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 # library name -> source; each library is one nvcc build
 SOURCES = {
     "conv3x3x3_fwd": "conv3x3x3_fwd.cu",
+    "conv3x3x3_dx": "conv3x3x3_dx.cu",
     "conv3x3x3_wgrad": "conv3x3x3_wgrad.cu",
     "max_pool_buf_fwd": "max_pool_buf_fwd.cu",
     "max_pool_buf_bwd": "max_pool_buf_bwd.cu",
@@ -75,7 +82,7 @@ KERNELS = {
                                         _P, _I, _I, _I, _I, _P, _P, _P, _P]),
     # kernel C. dconv, c, w, npad, post_a, post_x, cout, X, Y, Z, dx, sums,
     # ws, stream
-    "conv3x3x3_dx": ("conv3x3x3_fwd", [_P, _I, _P, _I, _P, _P, _I, _I, _I,
+    "conv3x3x3_dx": ("conv3x3x3_dx", [_P, _I, _P, _I, _P, _P, _I, _I, _I,
                                        _I, _P, _P, _P, _P]),
     # kernel D. x, ab, cin, dconv, cout, X, Y, Z, dw, ws, stream
     "conv3x3x3_wgrad": ("conv3x3x3_wgrad", [_P, _P, _I, _P, _I, _I, _I, _I,
@@ -89,7 +96,7 @@ KERNELS = {
                                              _P]),
     # kernel C, halo (edge_outputs) mode. dconv, c, w, npad, post_a, post_x,
     # post_lo, post_hi, valid, cout, X, Y, Z, dx, dlo, dhi, sums, ws, stream
-    "conv3x3x3_dx_halo": ("conv3x3x3_fwd", [_P, _I, _P, _I, _P, _P, _P, _P,
+    "conv3x3x3_dx_halo": ("conv3x3x3_dx", [_P, _I, _P, _I, _P, _P, _P, _P,
                                             _P, _I, _I, _I, _I, _P, _P, _P,
                                             _P, _P, _P]),
     # kernel D, halo mode. x, lo, hi, valid, ab, cin, dconv, cout, X, Y, Z,
@@ -125,10 +132,17 @@ KERNELS = {
 }
 # helper (not a kernel) -> (library, argtypes); each returns an int
 HELPERS = {
-    # f32 workspace of one launch (-1: too large). cout, X, Y, Z, edge
-    "conv3x3x3_sums_ws": ("conv3x3x3_fwd", [_I, _I, _I, _I, _I]),
+    # f32 workspace of one launch (-1: too large). cout, X, Y, Z
+    "conv3x3x3_sums_ws": ("conv3x3x3_fwd", [_I, _I, _I, _I]),
+    # cout, X, Y, Z, edge
+    "conv3x3x3_dx_ws": ("conv3x3x3_dx", [_I, _I, _I, _I, _I]),
     # cin, cout, X, Y, Z
     "conv3x3x3_wgrad_ws": ("conv3x3x3_wgrad", [_I, _I, _I, _I, _I]),
+    # tile constants that kernels/layout.py mirrors. what, cout, X, Y, Z,
+    # edge
+    "conv3x3x3_dx_tile": ("conv3x3x3_dx", [_I, _I, _I, _I, _I, _I]),
+    # what, Z
+    "conv3x3x3_wgrad_tile": ("conv3x3x3_wgrad", [_I, _I]),
     # c, X, Y, Z
     "max_pool_buf_bwd_ws": ("max_pool_buf_bwd", [_I, _I, _I, _I]),
     # n, s, c, dtype -> blocks per sample of gn_stats and gn_bwd_reduce
@@ -221,6 +235,7 @@ def _lib(name: str) -> ctypes.CDLL:
                 fn = getattr(lib, kernel)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
+        _check_tiles(name, lib)
         if name == "conv3x3x3_fwd":
             tiles = []
             for tile in ("conv3x3x3_fwd_tile_k", "conv3x3x3_fwd_tile_n"):
@@ -230,6 +245,37 @@ def _lib(name: str) -> ctypes.CDLL:
             _conv_tiles[:] = tiles
         _libs[name] = lib
     return lib
+
+
+def _check_tiles(name: str, lib: ctypes.CDLL) -> None:
+    """Raise if a library's exported tile constants differ from the ones
+    that :mod:`.layout` packs and plans with."""
+    if name == "conv3x3x3_dx":
+        want = {(0, 1, 1, 1, 1, 0): layout.DX_TILE_K,
+                (1, 1, 1, 1, 1, 0): layout.DX_STAGES}
+        want.update({(2, c, 1, 1, 1, 0): layout.dx_tile_n(c)
+                     for c in (1, 12, 32, 33, 64, 65, 128, 512)})
+        # rows per block at the flagship's levels, whole and in slabs
+        want.update({(3, c, x, y, y, e): layout.dx_rows_per_block(
+            c, x, y, y, bool(e)) for c in (32, 128, 512)
+            for x, y in ((96, 96), (49, 49), (25, 25), (13, 13), (48, 96),
+                         (13, 49)) for e in (0, 1)})
+        got = {k: lib.conv3x3x3_dx_tile(*k) for k in want}
+    elif name == "conv3x3x3_wgrad":
+        want = {(0, 1): layout.WGRAD_TILE_CI, (1, 1): layout.WGRAD_TILE_CO,
+                (3, 1): layout.WGRAD_TAP_GROUPS,
+                (4, 1): layout.WGRAD_TARGET_BLOCKS,
+                (5, 1): layout.WGRAD_MIN_STEPS}
+        # the step and the ring's stages across the depths that change them
+        for z in (13, 41, 42, 96, 189, 190, 317, 318):
+            want[(2, z)] = layout.wgrad_step(z)
+            want[(6, z)] = layout.wgrad_stages(z)
+        got = {k: lib.conv3x3x3_wgrad_tile(*k) for k in want}
+    else:
+        return
+    if got != want:
+        raise RuntimeError(f"lib{name}'s tile constants {got} differ from "
+                           f"kernels/layout.py's {want}")
 
 
 def _kernel(name: str):
@@ -346,27 +392,6 @@ def pack_conv_weights(weight: torch.Tensor, cins: Sequence[int]) -> torch.Tensor
     return torch.cat(blocks, 1).contiguous()
 
 
-def mirror_transpose(weight: torch.Tensor, cins: Sequence[int],
-                     branch: int) -> torch.Tensor:
-    """One input branch's weights as the transposed conv reads them:
-    (Cout, sum(cins), 3, 3, 3) -> (cins[branch], Cout, 3, 3, 3) with the
-    taps mirrored, Wt[ci][co][tap] = W[co][ci][26 - tap] — the counterpart
-    of ``mirror_transpose_shards`` (conv_pallas.py:198). A forward conv with
-    Wt is the transposed conv with W: the dx pass of that branch."""
-    c0 = sum(int(c) for c in cins[:branch])
-    wb = weight[:, c0:c0 + int(cins[branch])]
-    return wb.transpose(0, 1).flip(2, 3, 4)
-
-
-def pack_conv_weights_dx(weight: torch.Tensor, cins: Sequence[int],
-                         branch: int) -> torch.Tensor:
-    """Branch ``branch``'s mirrored, transposed weights packed as kernel C
-    reads them: (27, round_up(Cout, K tile), round_up(cins[branch], N
-    tile)) bf16, the layout of :func:`pack_conv_weights`."""
-    cout = int(weight.shape[0])
-    return pack_conv_weights(mirror_transpose(weight, cins, branch), [cout])
-
-
 def conv3x3x3_fwd(
     xs: Sequence[torch.Tensor],
     abs_: Sequence[torch.Tensor],
@@ -424,7 +449,7 @@ def conv3x3x3_fwd(
     xp, yp, zp = (int(v) for v in x1.shape[:3])
     y = torch.zeros((xp, yp, zp, cout), dtype=torch.bfloat16, device=x1.device)
     sums = torch.zeros((2, cout), dtype=torch.float32, device=x1.device)
-    ws = _workspace("conv3x3x3_sums_ws", cout, xp - 2, yp - 2, zp - 2, 0,
+    ws = _workspace("conv3x3x3_sums_ws", cout, xp - 2, yp - 2, zp - 2,
                     device=x1.device)
     x2, ab2 = (xs[1], abs_[1]) if len(xs) == 2 else (x1, abs_[0])
     stream = torch.cuda.current_stream(x1.device).cuda_stream
@@ -510,7 +535,7 @@ def conv3x3x3_dx(
         raise ValueError("dconv and post_x differ in geometry or device")
     c, cin = int(dconv.shape[3]), int(post_x.shape[3])
     _check_affine(post_ab, cin, dconv.device, "post affine")
-    shape = packed_weight_shape([c], cin)
+    shape = layout.dx_packed_shape(c, cin)
     if (packed.device != dconv.device or packed.dtype != torch.bfloat16
             or tuple(packed.shape) != shape or not packed.is_contiguous()):
         raise ValueError(f"packed dx weight must be a contiguous bfloat16 "
@@ -519,7 +544,7 @@ def conv3x3x3_dx(
     dx = torch.zeros((xp, yp, zp, cin), dtype=torch.bfloat16,
                      device=dconv.device)
     sums = torch.zeros((2, cin), dtype=torch.float32, device=dconv.device)
-    ws = _workspace("conv3x3x3_sums_ws", cin, xp - 2, yp - 2, zp - 2,
+    ws = _workspace("conv3x3x3_dx_ws", cin, xp - 2, yp - 2, zp - 2,
                     int(valid is not None), device=dconv.device)
     stream = torch.cuda.current_stream(dconv.device).cuda_stream
     if valid is not None:
@@ -527,13 +552,13 @@ def conv3x3x3_dx(
         ptrs = _halo_ptrs(post_halo, valid, post_x, "post_x")
         dlo, dhi = (torch.zeros((yp, zp, cin), dtype=torch.bfloat16,
                                 device=dconv.device) for _ in range(2))
-        args = (dconv.data_ptr(), c, packed.data_ptr(), int(packed.shape[2]),
+        args = (dconv.data_ptr(), c, packed.data_ptr(), int(packed.shape[1]),
                 post_ab.data_ptr(), post_x.data_ptr(), *ptrs, cin, xp - 2,
                 yp - 2, zp - 2, dx.data_ptr(), dlo.data_ptr(), dhi.data_ptr(),
                 sums.data_ptr(), ws.data_ptr(), stream)
     else:
         name = "conv3x3x3_dx"
-        args = (dconv.data_ptr(), c, packed.data_ptr(), int(packed.shape[2]),
+        args = (dconv.data_ptr(), c, packed.data_ptr(), int(packed.shape[1]),
                 post_ab.data_ptr(), post_x.data_ptr(), cin, xp - 2, yp - 2,
                 zp - 2, dx.data_ptr(), sums.data_ptr(), ws.data_ptr(), stream)
     fn = _kernel(name)
@@ -564,6 +589,9 @@ def conv3x3x3_wgrad(x: torch.Tensor, ab: torch.Tensor, dconv: torch.Tensor,
     cin, cout = int(x.shape[3]), int(dconv.shape[3])
     _check_affine(ab, cin, x.device, "wgrad affine")
     xp, yp, zp = (int(v) for v in x.shape[:3])
+    if layout.wgrad_stages(zp - 2) == 0:
+        raise ValueError(f"kernel D takes Z up to 317, got {zp - 2}: a deeper "
+                         "run does not fit in a block's shared memory")
     dw = torch.zeros((27, cin, cout), dtype=torch.float32, device=x.device)
     ws = _workspace("conv3x3x3_wgrad_ws", cin, cout, xp - 2, yp - 2, zp - 2,
                     device=x.device)
