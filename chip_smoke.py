@@ -11,9 +11,11 @@ order (each phase aborts the script with a non-zero exit on failure):
 1. prints the card's name and power limit (``nvidia-smi``);
 2. builds the kernels with ``nvcc`` for sm_90a, printing the seconds;
 3. holds kernel A (``conv3x3x3_fwd``) against its plain PyTorch version
-   at four flagship shapes and one with channel tails: y within 1 bf16
-   ulp (rtol 2^-7, atol 1e-3 — both sum exact bf16 products in f32, in
-   another order), stat sums rtol 1e-3, the ring exactly 0;
+   at three flagship shapes, a narrow one, one with channel tails and a
+   deep one (6 x 7 x 320: one-dy runs): y within 1 bf16 ulp (rtol 2^-7,
+   atol 1e-3 — both sum exact bf16 products in f32, in another order),
+   stat sums rtol 1e-3, the ring exactly 0, and two launches on the same
+   inputs bit-equal;
 4. holds kernel B (``max_pool_buf_fwd``) against its plain version at
    three flagship levels and one with a channel tail, with and without an
    affine: bit-equal;
@@ -27,13 +29,14 @@ order (each phase aborts the script with a non-zero exit on failure):
    times it against its plain version and one PyTorch library call,
    beside the least time the card could take (its bound): each call is
    captured as a CUDA graph and replayed back to back between CUDA events,
-   in turns;
+   in turns; then kernel A's share of its bound by level;
 7. profiles one flagship forward: device time by kernel, the device's
    busy share, peak device memory;
 8. holds the backward kernels against their plain versions at the four
    flagship levels, one shape with channel tails, one at the edges of
    kernels C and D's tiles (13 x 49 x 49, 96+160->48) and two with deep Z
-   (200, 240: D's shorter steps, C's one-dy runs): kernel C
+   (200, 240: D's shorter steps, C's one-dy runs; 6 x 7 x 320, a volume
+   rounded up past the largest bucket: D's one run per dy): kernel C
    (``conv3x3x3_dx``) |k - p| <= 2^-7 |p| + 1e-3 max|p| with its sums at
    rtol 1e-3, atol 1e-3 max|p| and a zero ring; kernel D
    (``conv3x3x3_wgrad``) rtol 1e-3, atol 1e-3 max|p|; kernel E
@@ -61,7 +64,8 @@ order (each phase aborts the script with a non-zero exit on failure):
    and two launches of C and of D bit-equal, and times it as phase 6
    does, against one library call (``aten.convolution_backward`` in bf16,
    channels-last, for C and D; ``max_pool3d_with_indices_backward`` for
-   E) and its bound, printing its share of the bound; D's library call is
+   E) and its bound, printing its share of the bound (and C's and D's by
+   level); D's library call is
    also timed on the batch-stride-C view that earlier versions of phases
    10 and 18 gave it (PERF.md §7);
 12. holds the four GroupNorm kernels (``gn_stats``, ``gn_apply``,
@@ -90,8 +94,8 @@ order (each phase aborts the script with a non-zero exit on failure):
    edge shard's valid pattern on each side and an interior one) and the
    slab+E layout of level 1 at space 4 (13 planes of 49 x 49, odd Xp 15,
    valid_out on the last and an inner shard, and a tile-edge case of
-   96+160->48 channels), at phases 3 and 8's bars, with two launches of C
-   and of D bit-equal;
+   96+160->48 channels), at phases 3 and 8's bars, with two launches of A,
+   of C and of D bit-equal;
 17. drives the spatial-parallel training step
    (``parallel.make_mesh(space=n, devices=[cuda] * n)``,
    ``make_train_step_sp``) of the flagship on phase 9's batch at space 2
@@ -107,7 +111,8 @@ order (each phase aborts the script with a non-zero exit on failure):
    and times it against the same launch without halo, its plain version,
    one library call on the halo-filled slab (cuDNN ``conv3d`` with
    padding (0, 1, 1); ``aten.convolution_backward`` with that padding)
-   and its bound, printing its share of the bound;
+   and its bound, printing its share of the bound, and A's, C's and D's
+   by level;
 19. holds the three probe kernels (``mxu_dot``, ``mxu_rdot``,
    ``slab_build``; ``csrc/mxu_probe.cu``) against their plain versions at
    the JAX probe's shapes (ps 10976, 200 reps, its 11 + 6 + 6
@@ -256,6 +261,21 @@ def timed_row(name, shape, kern, plain, lib, bound, err):
           f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} "
           f"ms, bound {bound:.4f} ms, max|err| {err:.3g}", flush=True)
     return row
+
+
+def level_shares(name, rows):
+    """Print a kernel's rows summed by level (the extent after '@' in each
+    row's shape): device time, share of the bound, library time."""
+    levels = {}
+    for r in rows:
+        levels.setdefault(r["shape"].split("@")[1], []).append(r)
+    for ext, rs in levels.items():
+        ms = sum(r["ms"] for r in rs)
+        bound = sum(r["bound_ms"] for r in rs)
+        lib = sum(r["library_ms"] for r in rs)
+        print(f"  {name} at {ext}: {len(rs)} launches, {ms:.4f} ms, "
+              f"{bound / ms * 100:.1f}% of its bound ({bound:.4f} ms), "
+              f"library {lib:.4f} ms", flush=True)
 
 
 def graph_ms(fn):
@@ -495,6 +515,8 @@ def phase_conv_checks(dev):
         ("narrow 4->8 @9x8x10", (9, 8, 10), [4], 8),
         # channel counts off the 8-wide vector loads and the 64-wide tile
         ("tails 12+20->10 @7x9x5", (7, 9, 5), [12, 20], 10),
+        # a volume rounded up past the largest bucket: runs of one dy
+        ("deep 64+128->64 @6x7x320", (6, 7, 320), [64, 128], 64),
     ]
     worst = 0.0
     for name, ext, cins, cout in cases:
@@ -516,6 +538,8 @@ def phase_conv_checks(dev):
         torch.testing.assert_close(y.float(), yp.float(), rtol=2 ** -7, atol=1e-3)
         torch.testing.assert_close(s, sp, rtol=1e-3, atol=1e-3)
         check(ring_is_zero(y), f"kernel A ring not zero ({name})")
+        check(bit_equal((y, s), cf.fused_conv_block(xs, affs, w, bias, g)),
+              f"kernel A: two launches differ ({name})")
     return worst
 
 
@@ -836,6 +860,7 @@ def phase_timing(model, x):
         err = (yk.float() - yp.float()).abs().max().item()
         del out_k, out_p, yk, yp
         rows[name].append(timed_row(name, shape, kern, plain, lib, bound, err))
+    level_shares("conv3x3x3_fwd", rows["conv3x3x3_fwd"])
     return rows
 
 
@@ -898,6 +923,9 @@ def phase_backward_checks(dev):
         # one dy (Z beyond 225 at an N tile of 128)
         ("deep 64->64 @3x5x200", (3, 5, 200), [64], 64),
         ("deeper 128->128 @3x4x240", (3, 4, 240), [128], 128),
+        # a volume rounded up past the largest bucket (289-320 -> 320):
+        # D's one run per dy, C's one-dy runs
+        ("deep 64+128->64 @6x7x320", (6, 7, 320), [64, 128], 64),
     ]
     for name, ext, cins, cout in cases:
         g = cf.make_geom(*ext)
@@ -987,7 +1015,7 @@ def kernel_class(key):
         return "D"
     if "conv3x3x3_dx_kernel" in key:
         return "C"
-    if "conv3x3x3_kernel" in key:
+    if "conv3x3x3_fwd_kernel" in key:
         return "A"
     if "max_pool_buf_bwd_kernel" in key:
         return "E"
@@ -1242,6 +1270,8 @@ def phase_backward_timing(model, step, x, labels):
                 rows[name][-1]["library_batch_stride_c_ms"] = old_lib
                 print(f"    library on the batch-stride-C view (the earlier "
                       f"yardstick): {old_lib:.4f} ms", flush=True)
+    for name in ("conv3x3x3_dx", "conv3x3x3_wgrad"):
+        level_shares(name, rows[name])
     return rows
 
 
@@ -1721,6 +1751,8 @@ def phase_halo_checks(dev, cases=None):
                                    atol=1e-3)
         torch.testing.assert_close(s, sp_, rtol=1e-3, atol=1e-3)
         check(ring_is_zero(y), f"kernel A halo ring not zero ({name})")
+        check(bit_equal((y, s), cf.conv_fwd(xs, affs, w, bias, g, **kw)),
+              f"kernel A halo: two launches differ ({name})")
         if vout is not None:
             check(not y[vo == 0].any(), f"kernel A halo wrote a dropped plane "
                   f"({name})")
@@ -2035,6 +2067,8 @@ def phase_halo_timing(model, step, xs, ls):
             sync()
             rows[kind].append(timed_halo_row(kind, shape, kern, nohalo, plain,
                                              lib, bound, err))
+    for kind in HALO_KERNELS:
+        level_shares(kind, rows[kind])
     return rows
 
 

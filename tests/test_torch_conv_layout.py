@@ -1,11 +1,14 @@
-"""The host-side layout of kernels C and D (``unetsulc_tpu_torch/kernels/
-layout.py``) on the CPU: kernel C's weight packing against
-``mirror_transpose`` (which ``test_torch_grads.py`` holds to JAX's
-``mirror_transpose_shards``), the two kernels' launch plans at the
-flagship's and the spatial-parallel slabs' shapes, the shared-memory limit
-of kernel D, and the loader's check of the libraries' tile constants.
+"""The host-side layout of kernels A, C and D (``unetsulc_tpu_torch/
+kernels/layout.py``) on the CPU: kernel A's weight packing against the
+(Cout, sum Cin, 3, 3, 3) weight and kernel C's against ``mirror_transpose``
+(which ``test_torch_grads.py`` holds to JAX's ``mirror_transpose_shards``),
+the three kernels' launch plans at the flagship's and the
+spatial-parallel slabs' shapes and at a very deep Z, kernel D's staging
+across depths, and the loader's check of the libraries' tile constants.
 Everything here is exact: integers, and bf16 values moved, not computed.
 """
+
+import collections
 
 import numpy as np
 import pytest
@@ -34,13 +37,35 @@ SHAPES = [
     ([96, 160], 48, (13, 49, 49), True),
     ([12, 20], 10, (7, 9, 5), False),
     ([4], 8, (9, 8, 10), True),
+    # a volume rounded up past the largest bucket (320 deep): kernel C's
+    # one-dy runs, kernel D's one run per dy
+    ([64, 128], 64, (6, 7, 320), False),
+]
+
+# kernel A's launches: the flagship forward's 13 (encoder, then decoder),
+# the space-2 slabs of levels 0-2 and the space-4 ones (level 1 in the
+# slab+E layout), the edges, and a very deep Z (one-dy runs)
+FWD_SHAPES = [
+    ([32], 64, (96, 96, 96)), ([64], 64, (49, 49, 49)),
+    ([64], 128, (49, 49, 49)), ([128], 128, (25, 25, 25)),
+    ([128], 256, (25, 25, 25)), ([256], 256, (13, 13, 13)),
+    ([256], 512, (13, 13, 13)), ([256, 512], 256, (25, 25, 25)),
+    ([256], 256, (25, 25, 25)), ([128, 256], 128, (49, 49, 49)),
+    ([128], 128, (49, 49, 49)), ([64, 128], 64, (96, 96, 96)),
+    ([64], 64, (96, 96, 96)),
+    ([32], 64, (48, 96, 96)), ([64, 128], 64, (48, 96, 96)),
+    ([128, 256], 128, (25, 49, 49)), ([256, 512], 256, (13, 25, 25)),
+    ([32], 64, (24, 96, 96)), ([128, 256], 128, (13, 49, 49)),
+    ([256, 512], 256, (8, 25, 25)),
+    ([96, 160], 48, (13, 49, 49)), ([12, 20], 10, (7, 9, 5)),
+    ([4], 8, (9, 8, 10)), ([64, 128], 64, (6, 7, 320)),
 ]
 
 
 def _ids(shape):
-    cins, cout, ext, halo = shape
+    cins, cout, ext = shape[:3]
     return f"{'+'.join(map(str, cins))}-{cout}@{'x'.join(map(str, ext))}" + (
-        "-halo" if halo else "")
+        "-halo" if shape[3:] and shape[3] else "")
 
 
 def _partition(ranges, lo, hi):
@@ -67,7 +92,7 @@ def test_dx_weights_unpack_to_mirror_transpose(cins, branch):
     assert tuple(packed.shape) == layout.dx_packed_shape(cout, cin)
     assert packed.dtype == torch.bfloat16
     _, npad, kpad = packed.shape
-    assert npad % layout.dx_tile_n(cin) == 0 and kpad % layout.DX_TILE_K == 0
+    assert npad % layout.tile_n(cin) == 0 and kpad % layout.TILE_K == 0
     want = kernels.mirror_transpose(w, cins, branch).to(torch.bfloat16)
     assert torch.equal(layout.unpack_conv_weights_dx(packed, cin, cout), want)
     pad = packed.clone()
@@ -99,8 +124,10 @@ def test_dx_plan_covers_each_output_once(shape):
         assert all(_partition(ns, 0, cin) for ns in by_rows.values())
         bm = layout.dx_rows_per_block(cin, X, Y, Z, halo)
         assert bm in (128, 256, 512)
-        assert bm == 128 or gm * gn >= layout.DX_MIN_BLOCKS
-        assert layout.dx_smem_bytes(bm, layout.dx_tile_n(cin), Z + 2, 3) \
+        assert bm == 128 or gm * gn >= layout.MIN_BLOCKS
+        nt = layout.tile_n(cin)
+        assert layout.smem_bytes(bm, nt, Z + 2,
+                                 layout.dy_group(bm, nt, Z + 2)) \
             <= layout.SMEM_LIMIT
 
 
@@ -135,13 +162,95 @@ def test_wgrad_plan_covers_each_term_once(shape):
 
 
 def test_wgrad_step_stages_and_depth_limit():
-    """Kernel D's K step and ring: 256 positions a step up to Z = 189 (3
-    stages up to Z = 41, then 2), 128 (2 stages) up to Z = 317, and deeper
-    runs do not fit in a block's shared memory (the wrapper refuses
-    them)."""
-    zs = (13, 41, 42, 96, 189, 190, 317, 318)
-    assert [layout.wgrad_step(z) for z in zs] == [256] * 5 + [128] * 3
-    assert [layout.wgrad_stages(z) for z in zs] == [3, 3, 2, 2, 2, 2, 2, 0]
+    """Kernel D's K step and staging at every depth: up to Z = 317 the
+    plan is unchanged, one run serving the three dy (256 positions a step
+    up to Z = 189, with 3 stages up to Z = 41, then 2; 128 positions and 2
+    stages up to 317); deeper, where two stages of that run no longer fit
+    in a block's shared memory, a stage holds one run per dy (128
+    positions, 3 stages) and the launch is planned, not refused."""
+    for z in range(13, 318):
+        assert layout.wgrad_step(z) == (256 if z <= 189 else 128), z
+        assert layout.wgrad_stages(z) == (3 if z <= 41 else 2), z
+        assert layout.wgrad_runs(z) == 1, z
+    for z in (318, 320, 352, 512):
+        assert (layout.wgrad_step(z), layout.wgrad_runs(z),
+                layout.wgrad_stages(z)) == (128, 3, 3), z
+        chunk, splits = layout.wgrad_split(64, 64, 6, 7, z)
+        assert chunk % 128 == 0 and splits >= 1
+        assert len(list(layout.wgrad_blocks(64, 64, 6, 7, z))) \
+            == splits * layout.WGRAD_TAP_GROUPS
+
+
+@pytest.mark.parametrize("cins", [[32], [64, 128], [12, 20], [4], [96, 160],
+                                  [256, 512]], ids=lambda c: "+".join(map(str, c)))
+def test_fwd_weights_unpack_to_weight(cins):
+    """Kernel A's packed weights unpack to the (Cout, sum Cin, 3, 3, 3)
+    weight in bf16, every pad is 0, each input's channels start at its K
+    offset, and the shape is the one the wrapper checks."""
+    rng = np.random.default_rng(5)
+    for cout in (10, 64, 256):
+        w = torch.from_numpy(rng.standard_normal(
+            (cout, sum(cins), 3, 3, 3)).astype(np.float32))
+        packed = layout.pack_conv_weights(w, cins)
+        assert tuple(packed.shape) == layout.fwd_packed_shape(cins, cout)
+        assert packed.dtype == torch.bfloat16
+        _, npad, ktot = packed.shape
+        assert npad % layout.tile_n(cout) == 0 and ktot % layout.TILE_K == 0
+        assert torch.equal(layout.unpack_conv_weights(packed, cins, cout),
+                           w.to(torch.bfloat16))
+        # tap dx*9 + dy*3 + dz, output channel co, input i's channel ci
+        k0s, c0 = layout.fwd_k_offsets(cins), 0
+        for i, ci in enumerate(cins):
+            assert k0s[i] % layout.TILE_K == 0
+            assert torch.equal(packed[5, cout - 1, k0s[i] + ci - 1],
+                               w[cout - 1, c0 + ci - 1, 0, 1, 2].to(
+                                   torch.bfloat16))
+            c0 += ci
+        pad = packed.clone()
+        for ci, k0 in zip(cins, k0s):
+            pad[:, :cout, k0:k0 + ci] = 0
+        assert not pad.any()
+        # the wrapper's packer is this one
+        assert torch.equal(kernels.pack_conv_weights(w, cins), packed)
+
+
+@pytest.mark.parametrize("shape", FWD_SHAPES, ids=_ids)
+def test_fwd_plan_covers_each_output_and_term_once(shape):
+    """Kernel A's blocks cover every output row (the positions of planes
+    1..X, whose (y, z) interior holds the interior output voxels) and every
+    output channel exactly once, and each block's staged runs serve each
+    (input, channel, tap) term exactly once, within one 64-channel chunk
+    of its input's packed K columns; the runs and the weight ring fit in
+    a block's shared memory, and a run's rows in kernel A's masks."""
+    cins, cout, (X, Y, Z) = shape
+    row0, rows = layout.fwd_rows(X, Y, Z)
+    yzp = (Y + 2) * (Z + 2)
+    assert (row0, rows) == (yzp, X * yzp)
+    blocks = list(layout.fwd_blocks(cins, cout, X, Y, Z))
+    gm, gn = layout.fwd_grid(cout, X, Y, Z)
+    assert len(blocks) == gm * gn
+    by_rows = {}
+    for r, n, runs in blocks:
+        by_rows.setdefault((r.start, r.stop), []).append(n)
+    assert _partition([range(*s) for s in by_rows], row0, row0 + rows)
+    assert all(_partition(ns, 0, cout) for ns in by_rows.values())
+    terms = collections.Counter()
+    k0s = layout.fwd_k_offsets(cins)
+    _, _, ktot = layout.fwd_packed_shape(cins, cout)
+    for i, chans, taps in blocks[0][2]:
+        assert chans.start % layout.TILE_K == 0 and len(chans) <= layout.TILE_K
+        assert k0s[i] + chans.stop <= ktot
+        terms.update((i, c, t) for c in chans for t in taps)
+    want = {(i, c, t) for i, ci in enumerate(cins) for c in range(ci)
+            for t in range(27)}
+    assert set(terms) == want and set(terms.values()) == {1}
+    assert all(b[2] is blocks[0][2] for b in blocks)
+    bm = layout.fwd_rows_per_block(cout, X, Y, Z)
+    nt, dyg = layout.tile_n(cout), layout.fwd_dy_group(cout, X, Y, Z)
+    assert bm in (128, 256, 512) and (bm == 128 or gm * gn >= layout.MIN_BLOCKS)
+    assert layout.smem_bytes(bm, nt, Z + 2, dyg) <= layout.SMEM_LIMIT
+    assert layout.run_rows(bm, Z + 2, dyg) <= layout.FWD_MAX_RUN_ROWS
+    assert dyg == (1 if Z >= 300 else 3)
 
 
 class _FakeLib:
@@ -151,9 +260,15 @@ class _FakeLib:
     def __init__(self, off_by):
         self.off_by = off_by
 
+    def conv3x3x3_fwd_tile(self, what, cout, X, Y, Z):
+        v = [layout.TILE_K, layout.STAGES, layout.tile_n(cout),
+             layout.fwd_rows_per_block(cout, X, Y, Z),
+             layout.fwd_dy_group(cout, X, Y, Z)][what]
+        return v + (self.off_by if what == 3 else 0)
+
     def conv3x3x3_dx_tile(self, what, cout, X, Y, Z, edge):
-        v = {0: layout.DX_TILE_K, 1: layout.DX_STAGES,
-             2: layout.dx_tile_n(cout),
+        v = {0: layout.TILE_K, 1: layout.STAGES,
+             2: layout.tile_n(cout),
              3: layout.dx_rows_per_block(cout, X, Y, Z, bool(edge))}[what]
         return v + (self.off_by if what == 3 else 0)
 
@@ -161,13 +276,14 @@ class _FakeLib:
         return [layout.WGRAD_TILE_CI, layout.WGRAD_TILE_CO,
                 layout.wgrad_step(Z), layout.WGRAD_TAP_GROUPS,
                 layout.WGRAD_TARGET_BLOCKS, layout.WGRAD_MIN_STEPS,
-                layout.wgrad_stages(Z)][what] + (self.off_by if what == 2
-                                                 else 0)
+                layout.wgrad_stages(Z), layout.wgrad_runs(Z)][what] + (
+                    self.off_by if what == 2 else 0)
 
 
-@pytest.mark.parametrize("name", ["conv3x3x3_dx", "conv3x3x3_wgrad"])
+@pytest.mark.parametrize("name", ["conv3x3x3_fwd", "conv3x3x3_dx",
+                                  "conv3x3x3_wgrad"])
 def test_loader_checks_tile_constants(name):
-    """Loading kernel C's or D's library compares its exported tile
+    """Loading kernel A's, C's or D's library compares its exported tile
     constants with layout.py's and raises on a mismatch."""
     kernels._check_tiles(name, _FakeLib(0))
     with pytest.raises(RuntimeError, match="tile constants"):

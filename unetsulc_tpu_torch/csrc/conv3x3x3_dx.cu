@@ -62,62 +62,12 @@
 #include <stdint.h>
 
 #include "fold.cuh"
+#include "row_plan.cuh"
 #include "wgmma.cuh"
 
 namespace {
 
 using namespace hopper;
-
-constexpr int BKC = 64;   // dconv channels per chunk: one 128-byte row
-constexpr int THREADS = 256;
-constexpr int STAGES = 5;            // weight-tile ring
-constexpr int LEAD = STAGES - 2;     // taps loaded ahead of the math
-constexpr int SMEM_LIMIT = 232448;   // a block's dynamic shared memory
-
-// N tile for `cout` output channels (the wgmma width): 32, 64 or 128
-__host__ __device__ constexpr int tile_n(int cout) {
-  return cout <= 32 ? 32 : (cout <= 64 ? 64 : 128);
-}
-
-__host__ __device__ constexpr uint32_t align1024(uint32_t n) {
-  return (n + 1023u) & ~1023u;
-}
-
-// bytes of one staged run of dconv rows for a bm-row block that serves
-// `dyg` values of dy (3 or 1) in a Zp-deep buffer
-__host__ __device__ constexpr uint32_t run_bytes(int bm, int zp, int dyg) {
-  return align1024((uint32_t)(bm + (dyg - 1) * zp + 2) * 128u);
-}
-
-// dynamic shared memory of a launch: two runs and the weight ring
-__host__ __device__ constexpr uint32_t smem_bytes(int bm, int nt, int zp,
-                                                  int dyg) {
-  return 1024u + 2u * run_bytes(bm, zp, dyg) + (uint32_t)STAGES * nt * 128u;
-}
-
-// dy values per staged run: all 3 where two such runs fit beside the
-// ring, else 1 (very deep Z)
-__host__ __device__ constexpr int dy_group(int bm, int nt, int zp) {
-  return smem_bytes(bm, nt, zp, 3) <= (uint32_t)SMEM_LIMIT ? 3 : 1;
-}
-
-// Rows per block: 128 per wgmma M half of 64 that each warpgroup runs, as
-// many as still give two blocks per SM of the H100's 132 and a run that
-// serves all three dy: 512 (four halves, N tiles up to 64 only: their
-// accumulators fit), 256, else 128.
-__host__ __device__ constexpr bool rows_fit(long long rows, int ntiles,
-                                            int nt, int zp, int bm) {
-  return (bm < 512 || nt <= 64) && (rows + bm - 1) / bm * ntiles >= 2 * 132 &&
-         smem_bytes(bm, nt, zp, 3) <= (uint32_t)SMEM_LIMIT;
-}
-
-__host__ __device__ constexpr int rows_per_block(long long rows, int ntiles,
-                                                 int nt, int zp) {
-  return rows_fit(rows, ntiles, nt, zp, 512)   ? 512
-         : rows_fit(rows, ntiles, nt, zp, 256) ? 256
-                                               : 128;
-}
-
 
 struct DxArgs {
   const __nv_bfloat16* dconv;  // (X+2, Y+2, Z+2, c)
@@ -157,21 +107,21 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int n0 = blockIdx.y * NT;
   const int dyg = dy_group(BM, NT, Zp);   // dy per run
   const int tpr = 3 * dyg;                // taps per run
-  const int run_rows = BM + (dyg - 1) * Zp + 2;
+  const int nrows = run_rows(BM, Zp, dyg);
   const uint32_t rbytes = run_bytes(BM, Zp, dyg);
   const uint32_t ring = base + 2 * rbytes;  // weight-tile ring
   const int ntaps = (p.kpad / BKC) * 27;
   const bool vec = (p.c % 8) == 0;
 
   // run i = (chunk, dx, dy group) -> buffer b: the dconv rows
-  // m0 + (dx - 1) Yp Zp + (dy0 - 1) Zp - 1 + r, r < run_rows, of the
+  // m0 + (dx - 1) Yp Zp + (dy0 - 1) Zp - 1 + r, r < nrows, of the
   // chunk's 64 channels; positions off the interior are 0
   auto load_run = [&](int i, int b) {
     const int groups = 3 / dyg;
     const int gi = i % groups, dxi = (i / groups) % 3, ch0 = i / groups / 3 * BKC;
     const int q0 = m0 + (dxi - 1) * YZp + (gi * dyg - 1) * Zp - 1;
     const uint32_t dst0 = base + b * rbytes;
-    for (int it = tid; it < run_rows * 8; it += THREADS) {
+    for (int it = tid; it < nrows * 8; it += THREADS) {
       const int r = it >> 3, pc = it & 7;
       const int q = q0 + r;
       const int ch = ch0 + pc * 8;

@@ -31,12 +31,14 @@
 // a 64-channel cin tile, a 64-channel cout tile, one dx (the 9 taps of
 // that plane offset, three per consumer warpgroup: warpgroup dy takes dz =
 // 0, 1, 2) and a contiguous range of positions (split-K). Per step of 256
-// positions (128 for Z beyond 189; beyond 317 the launch is refused, as
-// two stages no longer fit in shared memory) it stages once, with cp.async
-// into a ring of 3 or 2 stages: the dconv tile (the wgmma B operand: K =
-// the step's positions x N = 64 channels, N-contiguous, i.e. MN-major,
+// positions (128 for Z beyond 189) it stages once, with cp.async into a
+// ring of 3 or 2 stages: the dconv tile (the wgmma B operand: K = the
+// step's positions x N = 64 channels, N-contiguous, i.e. MN-major,
 // 128-byte swizzle) and the run of raw x rows that the 9 taps read (the
-// step's rows plus Zp + 1 on each side, shifted by the block's dx). Each
+// step's rows plus Zp + 1 on each side, shifted by the block's dx). Beyond
+// Z = 317 two stages of such a run no longer fit, so the stage holds three
+// runs instead, one per dy, each the step's rows plus one on each side
+// (its three dz): 3 (128 + 2) rows at any depth, three stages. Each
 // thread normalizes in shared memory the pieces it copied, ring and
 // invalid planes as 0, for the next step while the tensor cores run this
 // one. Each tap's A operand, xn^T at its shifted rows (MN-major: rows are
@@ -45,7 +47,7 @@
 // wgmma.cuh), so one staged run serves all 9 taps; a step's wgmmas go out
 // as one group, and the three 64 x 64 f32 accumulators of a warpgroup stay
 // in registers over the whole range. x and dconv are read 3 times (once
-// per dx) instead of 27.
+// per dx; x 9 times with one run per dy) instead of 27.
 //
 // Each block writes its 9 f32 tiles into its split's slice of the caller's
 // workspace, a (splits, 27, cin, cout) f32 array, and a fold (fold.cuh)
@@ -80,27 +82,47 @@ __host__ __device__ constexpr uint32_t align1024(uint32_t n) {
   return (n + 1023u) & ~1023u;
 }
 
-// bytes of a stage's x run (a step's bk rows and their halo) for Zp
-__host__ __device__ constexpr uint32_t run_bytes(int bk, int zp) {
-  return align1024((uint32_t)(bk + 2 * zp + 2) * 128u);
+// rows between the starts of a stage's three one-dy runs (runs = 3):
+// the step's bk rows and their two halo rows, rounded up to whole 8-row
+// swizzle atoms
+__host__ __device__ constexpr int split_rows(int bk) { return bk + 8; }
+
+// rows of a stage's x staging: one run of a step's bk rows and their Zp + 1
+// halo rows on each side (runs = 1), or three runs of bk + 2 (runs = 3)
+__host__ __device__ constexpr int x_rows(int bk, int zp, int runs) {
+  return runs == 1 ? bk + 2 * zp + 2 : 3 * (bk + 2);
 }
 
-__host__ __device__ constexpr uint32_t stage_bytes(int bk, int zp) {
-  return run_bytes(bk, zp) + bk * 128u;  // + the dconv tile
+// bytes of a stage's x staging
+__host__ __device__ constexpr uint32_t run_bytes(int bk, int zp, int runs) {
+  return align1024((uint32_t)(runs == 1 ? bk + 2 * zp + 2
+                                        : 3 * split_rows(bk)) * 128u);
+}
+
+__host__ __device__ constexpr uint32_t stage_bytes(int bk, int zp,
+                                                   int runs) {
+  return run_bytes(bk, zp, runs) + bk * 128u;  // + the dconv tile
 }
 
 // stages of a ring of bk-position steps that fit: 3, 2 or 0
-__host__ __device__ constexpr int stages_for(int bk, int zp) {
-  return 1024u + 3u * stage_bytes(bk, zp) <= (uint32_t)SMEM_LIMIT   ? 3
-         : 1024u + 2u * stage_bytes(bk, zp) <= (uint32_t)SMEM_LIMIT ? 2
-                                                                    : 0;
+__host__ __device__ constexpr int stages_for(int bk, int zp, int runs) {
+  return 1024u + 3u * stage_bytes(bk, zp, runs) <= (uint32_t)SMEM_LIMIT ? 3
+         : 1024u + 2u * stage_bytes(bk, zp, runs) <= (uint32_t)SMEM_LIMIT
+             ? 2
+             : 0;
 }
 
-// Positions per K step: 256 where two stages fit (Z up to 189), else 128
-// (Z up to 317; deeper is refused); a longer step halves the halo rows
-// staged and normalized per position.
+// Positions per K step: 256 where two stages of one run fit (Z up to
+// 189), else 128; a longer step halves the halo rows staged and
+// normalized per position.
 __host__ __device__ constexpr int step_for(int zp) {
-  return stages_for(256, zp) >= 2 ? 256 : 128;
+  return stages_for(256, zp, 1) >= 2 ? 256 : 128;
+}
+
+// x runs per stage: one that serves all three dy where two stages of it
+// fit (Z up to 317), else one per dy, which fits at any depth
+__host__ __device__ constexpr int runs_for(int zp) {
+  return stages_for(step_for(zp), zp, 1) >= 2 ? 1 : 3;
 }
 
 struct WgradArgs {
@@ -121,10 +143,11 @@ struct Walk {
   bool on;
 };
 
-template <int BK, int ST>
+template <int BK, int ST, int RUNS>
 __global__ void __launch_bounds__(THREADS, 1)
     conv3x3x3_wgrad_kernel(const WgradArgs p) {
   constexpr int KK = BK / 16;  // wgmma K steps per K step
+  constexpr int SR = split_rows(BK);
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -145,15 +168,16 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int kbeg = YZp + blockIdx.y * p.chunk;
   const int kend = min(kbeg + p.chunk, (p.X + 1) * YZp);
   const int nsteps = (kend - kbeg + BK - 1) / BK;
-  const int run_items = (BK + 2 * Zp + 2) * 8;  // 16-byte pieces of a run
-  const uint32_t sbytes = stage_bytes(BK, Zp);
-  const uint32_t rbytes = run_bytes(BK, Zp);
+  const int xr = x_rows(BK, Zp, RUNS);
+  const int run_items = xr * 8;  // 16-byte pieces of a stage's x rows
+  const uint32_t sbytes = stage_bytes(BK, Zp, RUNS);
+  const uint32_t rbytes = run_bytes(BK, Zp, RUNS);
   const bool vec_x = (p.cin % 8) == 0, vec_d = (p.cout % 8) == 0;
   // a thread copies and normalizes piece tid % 8 of rows tid / 8 + RSTEP i
   constexpr int RSTEP = THREADS / 8;
   const int prow = tid >> 3, ppc = tid & 7;
-  const int items = (BK + 2 * Zp + 2 - prow + RSTEP - 1) / RSTEP;
-  const int per_kk = ((BK + 2 * Zp + 2 + RSTEP - 1) / RSTEP + KK - 1) / KK;
+  const int items = (xr - prow + RSTEP - 1) / RSTEP;
+  const int per_kk = ((xr + RSTEP - 1) / RSTEP + KK - 1) / KK;
   const int step_y = RSTEP / Zp, step_z = RSTEP % Zp;  // RSTEP rows on
   float fa[8], fb[8];  // the affine of the thread's 8 channels
 #pragma unroll
@@ -192,6 +216,19 @@ __global__ void __launch_bounds__(THREADS, 1)
     return kbeg + s * BK + (dxo - 1) * YZp - Zp - 1;
   };
 
+  // x row i of a stage (i < xr) -> its row in the staging buffer (rows
+  // of the one-dy runs start SR apart) and its offset from run_q0
+  auto x_row = [&](int i, int& row) {
+    if constexpr (RUNS == 1) {
+      row = i;
+      return i;
+    } else {
+      const int d = i / (BK + 2), r = i - d * (BK + 2);
+      row = d * SR + r;
+      return d * Zp + r;
+    }
+  };
+
   // K step s -> stage st: the x run (raw; its ring rows are masked when
   // normalized) and the dconv tile (rows kbeg + s BK + r, r < BK: none
   // past kend or off the (y, z) interior)
@@ -199,8 +236,9 @@ __global__ void __launch_bounds__(THREADS, 1)
     const uint32_t sx = base + st * sbytes, sd = sx + rbytes;
     const int q0 = run_q0(s);
     for (int it = tid; it < run_items; it += THREADS) {
-      const int r = it >> 3, pc = it & 7;
-      const int q = q0 + r;
+      const int pc = it & 7;
+      int r;
+      const int q = q0 + x_row(it >> 3, r);
       const __nv_bfloat16* row = nullptr;
       if (q >= 0 && q < total) {
         if (halo && q < YZp)
@@ -229,13 +267,14 @@ __global__ void __launch_bounds__(THREADS, 1)
   // thread), normalized in place: bf16((f32(x) * a + b) * mask) as kernel
   // A's prologue computes it (explicit roundings, one bf16 cast), the mask
   // 0 off the interior (in halo mode: off the valid planes' (y, z)
-  // interior). Items are visited in order; `w` walks their coordinates.
+  // interior). Items are visited in order; `w` walks their coordinates
+  // (one run: consecutive items are RSTEP positions apart).
   auto normalize = [&](int s, int i, Walk& w) {
-    const int r = prow + RSTEP * i;
-    const int q = run_q0(s) + r;
+    int r;
+    const int q = run_q0(s) + x_row(prow + RSTEP * i, r);
     bool keep = false;
     if (q >= 0 && q < total) {
-      if (!w.on) {
+      if (RUNS == 3 || !w.on) {
         w.px = div_pos(q, YZp, inv_yz);
         const int rem = q - w.px * YZp;
         w.py = div_pos(rem, Zp, inv_z);
@@ -288,8 +327,8 @@ __global__ void __launch_bounds__(THREADS, 1)
   for (int d = 0; d < 3; ++d)
 #pragma unroll
     for (int e = 0; e < TCO / 2; ++e) acc[d][e] = 0.0f;
-  // the first row of this warpgroup's taps (dz = 0) in a run
-  const int arow = dy * Zp;
+  // the first row of this warpgroup's taps (dz = 0) in a stage
+  const int arow = RUNS == 1 ? dy * Zp : dy * SR;
 
 #pragma unroll 1
   for (int s = 0; s < nsteps; ++s) {
@@ -379,14 +418,14 @@ long long wgrad_ws_floats(int cin, int cout, int X, int Y, int Z) {
   return splits * cols + fold::scratch_floats(splits, cols);
 }
 
-template <int BK, int ST>
+template <int BK, int ST, int RUNS>
 cudaError_t launch_st(const WgradArgs& a, dim3 grid, uint32_t smem,
                       cudaStream_t st) {
   cudaError_t err = cudaFuncSetAttribute(
-      conv3x3x3_wgrad_kernel<BK, ST>,
+      conv3x3x3_wgrad_kernel<BK, ST, RUNS>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  conv3x3x3_wgrad_kernel<BK, ST><<<grid, THREADS, smem, st>>>(a);
+  conv3x3x3_wgrad_kernel<BK, ST, RUNS><<<grid, THREADS, smem, st>>>(a);
   return cudaGetLastError();
 }
 
@@ -394,8 +433,9 @@ int launch_wgrad(const void* x, const void* lo, const void* hi,
                  const float* valid, const float* ab, int cin,
                  const void* dconv, int cout, int X, int Y, int Z, float* dw,
                  float* ws, void* stream) {
-  const int bk = step_for(Z + 2), st_n = stages_for(bk, Z + 2);
-  const uint32_t smem = 1024u + st_n * stage_bytes(bk, Z + 2);
+  const int bk = step_for(Z + 2), runs = runs_for(Z + 2);
+  const int st_n = stages_for(bk, Z + 2, runs);
+  const uint32_t smem = 1024u + st_n * stage_bytes(bk, Z + 2, runs);
   if (st_n == 0 ||
       (long long)(X + 2) * (Y + 2) * (Z + 2) * (cin > cout ? cin : cout) >
           0x7fffffffLL)
@@ -420,10 +460,11 @@ int launch_wgrad(const void* x, const void* lo, const void* hi,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid((unsigned)tiles, (unsigned)splits);
   cudaError_t err =
-      bk == 256 ? (st_n == 3 ? launch_st<256, 3>(a, grid, smem, st)
-                             : launch_st<256, 2>(a, grid, smem, st))
-                : (st_n == 3 ? launch_st<128, 3>(a, grid, smem, st)
-                             : launch_st<128, 2>(a, grid, smem, st));
+      runs == 3   ? launch_st<128, 3, 3>(a, grid, smem, st)
+      : bk == 256 ? (st_n == 3 ? launch_st<256, 3, 1>(a, grid, smem, st)
+                               : launch_st<256, 2, 1>(a, grid, smem, st))
+                  : (st_n == 3 ? launch_st<128, 3, 1>(a, grid, smem, st)
+                               : launch_st<128, 2, 1>(a, grid, smem, st));
   if (err != cudaSuccess) return (int)err;
   const long long cols = 27LL * cin * cout;
   return (int)fold::fold_cols(ws, splits, cols, ws + splits * cols, dw, st);
@@ -434,8 +475,8 @@ int launch_wgrad(const void* x, const void* lo, const void* hi,
 // Constants that the wrapper's plan mirrors: what = 0 the cin tile, 1 the
 // cout tile, 2 the positions per K step for a Z-deep interior, 3 the tap
 // groups (blocks per (cin, cout) tile and split), 4 the target block
-// count, 5 the least K steps per split, 6 the ring's stages for Z (0: the
-// launch is refused).
+// count, 5 the least K steps per split, 6 the ring's stages for Z, 7 the
+// x runs per stage for Z (1, or 3: one per dy).
 extern "C" int conv3x3x3_wgrad_tile(int what, int Z) {
   switch (what) {
     case 0: return TCI;
@@ -444,7 +485,8 @@ extern "C" int conv3x3x3_wgrad_tile(int what, int Z) {
     case 3: return TAP_GROUPS;
     case 4: return TARGET_BLOCKS;
     case 5: return MIN_STEPS;
-    case 6: return stages_for(step_for(Z + 2), Z + 2);
+    case 6: return stages_for(step_for(Z + 2), Z + 2, runs_for(Z + 2));
+    case 7: return runs_for(Z + 2);
     default: return -1;
   }
 }

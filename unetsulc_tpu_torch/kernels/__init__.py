@@ -2,9 +2,9 @@
 
 Twelve kernels in seven sources: A ``conv3x3x3_fwd``
 (``conv3x3x3_fwd.cu``), C ``conv3x3x3_dx`` (``conv3x3x3_dx.cu``) and D
-``conv3x3x3_wgrad`` (``conv3x3x3_wgrad.cu``), both on ``wgmma`` with
-their tile constants, weight packing and plans mirrored in
-:mod:`unetsulc_tpu_torch.kernels.layout`, B
+``conv3x3x3_wgrad`` (``conv3x3x3_wgrad.cu``), all three on ``wgmma``
+(``csrc/wgmma.cuh``) with their tile constants, weight packing and plans
+mirrored in :mod:`unetsulc_tpu_torch.kernels.layout`, B
 ``max_pool_buf_fwd``, E ``max_pool_buf_bwd``, and the GroupNorm kernels
 ``gn_stats``, ``gn_apply``, ``gn_bwd_reduce`` and ``gn_bwd_dx``
 (``group_norm.cu``), and the three probe kernels ``mxu_dot``, ``mxu_rdot``
@@ -48,10 +48,10 @@ from pathlib import Path
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from . import layout
-from .layout import mirror_transpose, pack_conv_weights_dx  # noqa: F401
+from .layout import (  # noqa: F401
+    mirror_transpose, pack_conv_weights, pack_conv_weights_dx)
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -133,13 +133,14 @@ KERNELS = {
 # helper (not a kernel) -> (library, argtypes); each returns an int
 HELPERS = {
     # f32 workspace of one launch (-1: too large). cout, X, Y, Z
-    "conv3x3x3_sums_ws": ("conv3x3x3_fwd", [_I, _I, _I, _I]),
+    "conv3x3x3_fwd_ws": ("conv3x3x3_fwd", [_I, _I, _I, _I]),
     # cout, X, Y, Z, edge
     "conv3x3x3_dx_ws": ("conv3x3x3_dx", [_I, _I, _I, _I, _I]),
     # cin, cout, X, Y, Z
     "conv3x3x3_wgrad_ws": ("conv3x3x3_wgrad", [_I, _I, _I, _I, _I]),
-    # tile constants that kernels/layout.py mirrors. what, cout, X, Y, Z,
-    # edge
+    # tile constants that kernels/layout.py mirrors. what, cout, X, Y, Z
+    "conv3x3x3_fwd_tile": ("conv3x3x3_fwd", [_I, _I, _I, _I, _I]),
+    # what, cout, X, Y, Z, edge
     "conv3x3x3_dx_tile": ("conv3x3x3_dx", [_I, _I, _I, _I, _I, _I]),
     # what, Z
     "conv3x3x3_wgrad_tile": ("conv3x3x3_wgrad", [_I, _I]),
@@ -156,8 +157,6 @@ HELPERS = {
 launch_counts: Dict[str, int] = {name: 0 for name in KERNELS}
 
 _libs: Dict[str, ctypes.CDLL] = {}
-# kernel A's (K, N) tile widths, read from its library when it is loaded
-_conv_tiles: list = []
 _lock = threading.Lock()
 
 
@@ -236,13 +235,6 @@ def _lib(name: str) -> ctypes.CDLL:
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
         _check_tiles(name, lib)
-        if name == "conv3x3x3_fwd":
-            tiles = []
-            for tile in ("conv3x3x3_fwd_tile_k", "conv3x3x3_fwd_tile_n"):
-                getattr(lib, tile).argtypes = []
-                getattr(lib, tile).restype = ctypes.c_int
-                tiles.append(getattr(lib, tile)())
-            _conv_tiles[:] = tiles
         _libs[name] = lib
     return lib
 
@@ -250,26 +242,39 @@ def _lib(name: str) -> ctypes.CDLL:
 def _check_tiles(name: str, lib: ctypes.CDLL) -> None:
     """Raise if a library's exported tile constants differ from the ones
     that :mod:`.layout` packs and plans with."""
-    if name == "conv3x3x3_dx":
-        want = {(0, 1, 1, 1, 1, 0): layout.DX_TILE_K,
-                (1, 1, 1, 1, 1, 0): layout.DX_STAGES}
-        want.update({(2, c, 1, 1, 1, 0): layout.dx_tile_n(c)
+    # the flagship's levels, whole and in slabs, and a very deep Z
+    extents = ((96, 96, 96), (49, 49, 49), (25, 25, 25), (13, 13, 13),
+               (48, 96, 96), (13, 49, 49), (6, 7, 320))
+    couts = (8, 32, 64, 128, 512)
+    if name == "conv3x3x3_fwd":
+        want = {(0, 1, 1, 1, 1): layout.TILE_K, (1, 1, 1, 1, 1): layout.STAGES}
+        want.update({(2, c, 1, 1, 1): layout.tile_n(c)
                      for c in (1, 12, 32, 33, 64, 65, 128, 512)})
-        # rows per block at the flagship's levels, whole and in slabs
-        want.update({(3, c, x, y, y, e): layout.dx_rows_per_block(
-            c, x, y, y, bool(e)) for c in (32, 128, 512)
-            for x, y in ((96, 96), (49, 49), (25, 25), (13, 13), (48, 96),
-                         (13, 49)) for e in (0, 1)})
+        for c in couts:
+            for x, y, z in extents:
+                want[(3, c, x, y, z)] = layout.fwd_rows_per_block(c, x, y, z)
+                want[(4, c, x, y, z)] = layout.fwd_dy_group(c, x, y, z)
+        got = {k: lib.conv3x3x3_fwd_tile(*k) for k in want}
+    elif name == "conv3x3x3_dx":
+        want = {(0, 1, 1, 1, 1, 0): layout.TILE_K,
+                (1, 1, 1, 1, 1, 0): layout.STAGES}
+        want.update({(2, c, 1, 1, 1, 0): layout.tile_n(c)
+                     for c in (1, 12, 32, 33, 64, 65, 128, 512)})
+        want.update({(3, c, x, y, z, e): layout.dx_rows_per_block(
+            c, x, y, z, bool(e)) for c in couts for x, y, z in extents
+            for e in (0, 1)})
         got = {k: lib.conv3x3x3_dx_tile(*k) for k in want}
     elif name == "conv3x3x3_wgrad":
         want = {(0, 1): layout.WGRAD_TILE_CI, (1, 1): layout.WGRAD_TILE_CO,
                 (3, 1): layout.WGRAD_TAP_GROUPS,
                 (4, 1): layout.WGRAD_TARGET_BLOCKS,
                 (5, 1): layout.WGRAD_MIN_STEPS}
-        # the step and the ring's stages across the depths that change them
-        for z in (13, 41, 42, 96, 189, 190, 317, 318):
+        # the step, the ring's stages and the runs per stage across the
+        # depths that change them
+        for z in (13, 41, 42, 96, 189, 190, 317, 318, 320, 512):
             want[(2, z)] = layout.wgrad_step(z)
             want[(6, z)] = layout.wgrad_stages(z)
+            want[(7, z)] = layout.wgrad_runs(z)
         got = {k: lib.conv3x3x3_wgrad_tile(*k) for k in want}
     else:
         return
@@ -356,42 +361,6 @@ def _raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
 
 
-def _conv_tile() -> Tuple[int, int]:
-    """Kernel A's (K, N) tile widths, read once from its library."""
-    _lib("conv3x3x3_fwd")
-    return _conv_tiles[0], _conv_tiles[1]
-
-
-def _round_up(n: int, m: int) -> int:
-    return -(-n // m) * m
-
-
-def packed_weight_shape(cins: Sequence[int], cout: int) -> Tuple[int, int, int]:
-    bk, bn = _conv_tile()
-    return 27, sum(_round_up(ci, bk) for ci in cins), _round_up(cout, bn)
-
-
-def pack_conv_weights(weight: torch.Tensor, cins: Sequence[int]) -> torch.Tensor:
-    """(Cout, sum(cins), 3, 3, 3) -> (27, Ktot, Npad) bf16, the layout
-    ``conv3x3x3_fwd`` reads: tap-major (tap = dx*9 + dy*3 + dz), each
-    input's channel rows zero-padded to the kernel's K tile and Cout to its
-    N tile."""
-    cout, cin_t = int(weight.shape[0]), int(weight.shape[1])
-    if cin_t != sum(cins) or tuple(weight.shape[2:]) != (3, 3, 3):
-        raise ValueError(f"weight {tuple(weight.shape)} does not match "
-                         f"inputs of {list(cins)} channels")
-    bk, bn = _conv_tile()
-    taps = weight.to(torch.bfloat16).permute(2, 3, 4, 1, 0).reshape(
-        27, cin_t, cout
-    )
-    blocks, c0 = [], 0
-    for ci in cins:
-        blocks.append(F.pad(taps[:, c0:c0 + ci], (
-            0, _round_up(cout, bn) - cout, 0, _round_up(ci, bk) - ci)))
-        c0 += ci
-    return torch.cat(blocks, 1).contiguous()
-
-
 def conv3x3x3_fwd(
     xs: Sequence[torch.Tensor],
     abs_: Sequence[torch.Tensor],
@@ -440,7 +409,7 @@ def conv3x3x3_fwd(
         raise ValueError(f"weight must be on {x1.device}")
     if packed is None:
         packed = pack_conv_weights(weight, cins)
-    shape = packed_weight_shape(cins, cout)
+    shape = layout.fwd_packed_shape(cins, cout)
     if (packed.device != x1.device or packed.dtype != torch.bfloat16
             or tuple(packed.shape) != shape or not packed.is_contiguous()):
         raise ValueError(f"packed weight must be a contiguous bfloat16 "
@@ -449,7 +418,7 @@ def conv3x3x3_fwd(
     xp, yp, zp = (int(v) for v in x1.shape[:3])
     y = torch.zeros((xp, yp, zp, cout), dtype=torch.bfloat16, device=x1.device)
     sums = torch.zeros((2, cout), dtype=torch.float32, device=x1.device)
-    ws = _workspace("conv3x3x3_sums_ws", cout, xp - 2, yp - 2, zp - 2,
+    ws = _workspace("conv3x3x3_fwd_ws", cout, xp - 2, yp - 2, zp - 2,
                     device=x1.device)
     x2, ab2 = (xs[1], abs_[1]) if len(xs) == 2 else (x1, abs_[0])
     stream = torch.cuda.current_stream(x1.device).cuda_stream
@@ -462,7 +431,7 @@ def conv3x3x3_fwd(
             _check_valid(valid_out, xp, x1.device, "valid_out")
         args = (x1.data_ptr(), abs_[0].data_ptr(), cins[0], *h[0],
                 x2.data_ptr(), ab2.data_ptr(), int(x2.shape[3]), *h2, len(xs),
-                w.data_ptr(), int(w.shape[2]), bias.data_ptr(), cout,
+                w.data_ptr(), int(w.shape[1]), bias.data_ptr(), cout,
                 xp - 2, yp - 2, zp - 2,
                 None if valid_out is None else valid_out.data_ptr(),
                 y.data_ptr(), sums.data_ptr(), ws.data_ptr(), stream)
@@ -470,7 +439,7 @@ def conv3x3x3_fwd(
         name = "conv3x3x3_fwd"
         args = (x1.data_ptr(), abs_[0].data_ptr(), cins[0],
                 x2.data_ptr(), ab2.data_ptr(), int(x2.shape[3]), len(xs),
-                w.data_ptr(), int(w.shape[2]), bias.data_ptr(), cout,
+                w.data_ptr(), int(w.shape[1]), bias.data_ptr(), cout,
                 xp - 2, yp - 2, zp - 2, y.data_ptr(), sums.data_ptr(),
                 ws.data_ptr(), stream)
     fn = _kernel(name)
@@ -589,9 +558,6 @@ def conv3x3x3_wgrad(x: torch.Tensor, ab: torch.Tensor, dconv: torch.Tensor,
     cin, cout = int(x.shape[3]), int(dconv.shape[3])
     _check_affine(ab, cin, x.device, "wgrad affine")
     xp, yp, zp = (int(v) for v in x.shape[:3])
-    if layout.wgrad_stages(zp - 2) == 0:
-        raise ValueError(f"kernel D takes Z up to 317, got {zp - 2}: a deeper "
-                         "run does not fit in a block's shared memory")
     dw = torch.zeros((27, cin, cout), dtype=torch.float32, device=x.device)
     ws = _workspace("conv3x3x3_wgrad_ws", cin, cout, xp - 2, yp - 2, zp - 2,
                     device=x.device)

@@ -1,33 +1,38 @@
-"""Host-side layout of kernels C (``csrc/conv3x3x3_dx.cu``) and D
-(``csrc/conv3x3x3_wgrad.cu``): their tile constants, kernel C's weight
-packing and both kernels' launch plans, in plain Python so that the CPU
-tests reach them. Each constant mirrors one that its library exports
-(``conv3x3x3_dx_tile``, ``conv3x3x3_wgrad_tile``); the library loader in
+"""Host-side layout of kernels A (``csrc/conv3x3x3_fwd.cu``), C
+(``csrc/conv3x3x3_dx.cu``) and D (``csrc/conv3x3x3_wgrad.cu``): their tile
+constants, A's and C's weight packing and the three kernels' launch plans,
+in plain Python so that the CPU tests reach them. Each constant mirrors
+one that its library exports (``conv3x3x3_fwd_tile``,
+``conv3x3x3_dx_tile``, ``conv3x3x3_wgrad_tile``); the library loader in
 :mod:`unetsulc_tpu_torch.kernels` compares them when it loads the library
 and raises on a mismatch.
 
-Positions. Both kernels index the padded (X+2, Y+2, Z+2) buffer by its
+Positions. The kernels index the padded (X+2, Y+2, Z+2) buffer by its
 flat position ``(px * Yp + py) * Zp + pz``; a tap (dx, dy, dz) shifts a
-position by ``(dx - 1) Yp Zp + (dy - 1) Zp + (dz - 1)``. Kernel C's output
-rows are the positions of planes 1..X (halo mode: 0..X+1), ring positions
-included and dropped in its epilogue; kernel D's K range is the positions
-of planes 1..X, where dconv's ring adds nothing.
+position by ``(dx - 1) Yp Zp + (dy - 1) Zp + (dz - 1)``. Kernel A's output
+rows are the positions of planes 1..X and kernel C's those of planes 1..X
+(halo mode: 0..X+1), ring positions included and dropped in their
+epilogues; A and C share one plan (``csrc/row_plan.cuh``). Kernel D's K
+range is the positions of planes 1..X, where dconv's ring adds nothing.
 """
 
 from __future__ import annotations
 
-from typing import Iterator, Sequence, Tuple
+from typing import Iterator, List, Sequence, Tuple
 
 import torch
 
-# kernel C: dconv channels per K chunk (one 128-byte shared-memory row),
-# stages of the weight ring, and the blocks a launch keeps when it picks
-# its rows per block (two per SM of an H100)
-DX_TILE_K = 64
-DX_STAGES = 5
-DX_MIN_BLOCKS = 132 * 2
+# kernels A and C (csrc/row_plan.cuh): K channels per chunk (one 128-byte
+# shared-memory row), stages of the weight ring, and the blocks a launch
+# keeps when it picks its rows per block (two per SM of an H100)
+TILE_K = 64
+STAGES = 5
+MIN_BLOCKS = 132 * 2
 # dynamic shared memory a block may use on an H100
 SMEM_LIMIT = 232448
+# kernel A: rows of a staged run at most (a thread stages one 16-byte
+# piece of every 32nd row, 32 rows at most, one bit of a mask each)
+FWD_MAX_RUN_ROWS = 32 * 32
 
 # kernel D: cin and cout channels per block (wgmma M and N), tap groups
 # (one block per dx: 9 taps), the blocks a launch aims at (two per SM of
@@ -44,9 +49,167 @@ def round_up(n: int, m: int) -> int:
     return -(-n // m) * m
 
 
-def dx_tile_n(cout: int) -> int:
-    """Kernel C's N tile (its wgmma width) for ``cout`` output channels."""
+def tile_n(cout: int) -> int:
+    """Kernels A's and C's N tile (their wgmma width) for ``cout`` output
+    channels."""
     return 32 if cout <= 32 else (64 if cout <= 64 else 128)
+
+
+def run_rows(bm: int, zp: int, dyg: int) -> int:
+    """Rows of a staged run of a bm-row block that serves ``dyg`` values
+    of dy (3, or 1 for very deep Z): the rows and their halo."""
+    return bm + (dyg - 1) * zp + 2
+
+
+def smem_bytes(bm: int, nt: int, zp: int, dyg: int) -> int:
+    """Kernels A's and C's dynamic shared memory: two staged runs and the
+    weight ring."""
+    run = -(-run_rows(bm, zp, dyg) * 128 // 1024) * 1024
+    return 1024 + 2 * run + STAGES * nt * 128
+
+
+def dy_group(bm: int, nt: int, zp: int) -> int:
+    """dy values per staged run: 3 where two such runs fit beside the
+    ring, else 1."""
+    return 3 if smem_bytes(bm, nt, zp, 3) <= SMEM_LIMIT else 1
+
+
+def rows_per_block(rows: int, cout: int, Z: int) -> int:
+    """Rows per block of a launch of ``rows`` output rows and ``cout``
+    output channels: 128 per wgmma M half of 64 that each of the two
+    warpgroups runs, as many as still give MIN_BLOCKS blocks and a run
+    that serves all three dy: 512 (N tiles up to 64 only), 256, else
+    128."""
+    nt = tile_n(cout)
+    ntiles = -(-cout // nt)
+    for bm in (512, 256):
+        if ((nt <= 64 or bm < 512) and -(-rows // bm) * ntiles >= MIN_BLOCKS
+                and smem_bytes(bm, nt, Z + 2, 3) <= SMEM_LIMIT):
+            return bm
+    return 128
+
+
+def _plan_blocks(row0: int, rows: int, cout: int, Z: int
+                 ) -> Iterator[Tuple[range, range]]:
+    """(output rows, output channels) of each block of a launch."""
+    nt = tile_n(cout)
+    bm = rows_per_block(rows, cout, Z)
+    for bx in range(-(-rows // bm)):
+        r0 = row0 + bx * bm
+        for by in range(-(-cout // nt)):
+            yield (range(r0, min(r0 + bm, row0 + rows)),
+                   range(by * nt, min((by + 1) * nt, cout)))
+
+
+# ---------------------------------------------------------------------------
+# kernel A
+# ---------------------------------------------------------------------------
+
+
+def fwd_packed_shape(cins: Sequence[int], cout: int) -> Tuple[int, int, int]:
+    """(27, npad, ktot): kernel A's packed weights for inputs of ``cins``
+    channels and ``cout`` output channels."""
+    return (27, round_up(cout, tile_n(cout)),
+            sum(round_up(int(c), TILE_K) for c in cins))
+
+
+def fwd_k_offsets(cins: Sequence[int]) -> List[int]:
+    """The first packed K column of each input: input i's channel ch sits
+    at column ``fwd_k_offsets(cins)[i] + ch``."""
+    out, k = [], 0
+    for c in cins:
+        out.append(k)
+        k += round_up(int(c), TILE_K)
+    return out
+
+
+def pack_conv_weights(weight: torch.Tensor, cins: Sequence[int]) -> torch.Tensor:
+    """(Cout, sum(cins), 3, 3, 3) -> (27, npad, ktot) bf16, the layout
+    kernel A reads: P[tap][co][k_i + ci] = W[co][c0_i + ci][tap] (tap =
+    dx*9 + dy*3 + dz, k_i the input's first packed column), each input's
+    channels zero-padded to the K chunk and Cout to the N tile, so each
+    (tap, chunk) tile is npad rows of 64 contiguous K values (its wgmma B
+    operand, K-major)."""
+    cout, cin_t = int(weight.shape[0]), int(weight.shape[1])
+    if cin_t != sum(int(c) for c in cins) or tuple(weight.shape[2:]) != (3, 3, 3):
+        raise ValueError(f"weight {tuple(weight.shape)} does not match "
+                         f"inputs of {list(cins)} channels")
+    taps = weight.to(torch.bfloat16).permute(2, 3, 4, 0, 1).reshape(
+        27, cout, cin_t)
+    out = taps.new_zeros(fwd_packed_shape(cins, cout))
+    c0 = 0
+    for ci, k0 in zip(cins, fwd_k_offsets(cins)):
+        out[:, :cout, k0:k0 + ci] = taps[:, :, c0:c0 + ci]
+        c0 += ci
+    return out
+
+
+def unpack_conv_weights(packed: torch.Tensor, cins: Sequence[int],
+                        cout: int) -> torch.Tensor:
+    """Inverse of :func:`pack_conv_weights`: (Cout, sum(cins), 3, 3, 3)."""
+    cols = torch.cat([torch.arange(k0, k0 + int(c))
+                      for c, k0 in zip(cins, fwd_k_offsets(cins))])
+    return packed[:, :cout, cols].reshape(3, 3, 3, cout, -1).permute(
+        3, 4, 0, 1, 2)
+
+
+def fwd_rows(X: int, Y: int, Z: int) -> Tuple[int, int]:
+    """(first output row, output rows) of a kernel A launch: the positions
+    of planes 1..X, in either mode."""
+    yzp = (Y + 2) * (Z + 2)
+    return yzp, X * yzp
+
+
+def fwd_rows_per_block(cout: int, X: int, Y: int, Z: int) -> int:
+    """Kernel A's output rows per block (:func:`rows_per_block`)."""
+    return rows_per_block(fwd_rows(X, Y, Z)[1], cout, Z)
+
+
+def fwd_dy_group(cout: int, X: int, Y: int, Z: int) -> int:
+    """dy values per staged run of a kernel A launch: 3, or 1 where two
+    runs of the nine taps' halo do not fit (very deep Z)."""
+    return dy_group(fwd_rows_per_block(cout, X, Y, Z), tile_n(cout), Z + 2)
+
+
+def fwd_runs(cins: Sequence[int], cout: int, X: int, Y: int, Z: int
+             ) -> List[Tuple[int, range, Tuple[int, ...]]]:
+    """The staged runs of every kernel A block, in the kernel's order: for
+    each input, each of its 64-channel chunks, each dx and each dy group,
+    (the input, its channels in the chunk, the taps that the run serves:
+    tap = dx*9 + dy*3 + dz)."""
+    dyg = fwd_dy_group(cout, X, Y, Z)
+    out = []
+    for i, c in enumerate(cins):
+        for ch in range(0, int(c), TILE_K):
+            for dx in range(3):
+                for gi in range(3 // dyg):
+                    taps = tuple(dx * 9 + (gi * dyg + t // 3) * 3 + t % 3
+                                 for t in range(3 * dyg))
+                    out.append((i, range(ch, min(ch + TILE_K, int(c))), taps))
+    return out
+
+
+def fwd_grid(cout: int, X: int, Y: int, Z: int) -> Tuple[int, int]:
+    """Kernel A's grid: (row blocks, N tiles)."""
+    _, rows = fwd_rows(X, Y, Z)
+    bm = fwd_rows_per_block(cout, X, Y, Z)
+    return -(-rows // bm), -(-cout // tile_n(cout))
+
+
+def fwd_blocks(cins: Sequence[int], cout: int, X: int, Y: int, Z: int
+               ) -> Iterator[Tuple[range, range, list]]:
+    """Each block of a kernel A launch: (its output rows, its output
+    channels, its staged runs (:func:`fwd_runs`)), clipped to the real
+    extents."""
+    runs = fwd_runs(cins, cout, X, Y, Z)
+    row0, rows = fwd_rows(X, Y, Z)
+    for r, n in _plan_blocks(row0, rows, cout, Z):
+        yield r, n, runs
+
+
+# ---------------------------------------------------------------------------
+# kernel C
+# ---------------------------------------------------------------------------
 
 
 def mirror_transpose(weight: torch.Tensor, cins: Sequence[int],
@@ -64,7 +227,7 @@ def mirror_transpose(weight: torch.Tensor, cins: Sequence[int],
 def dx_packed_shape(c: int, cin: int) -> Tuple[int, int, int]:
     """(27, npad, kpad): kernel C's packed weights for a branch of ``cin``
     channels under a conv of ``c`` output channels (dconv's)."""
-    return 27, round_up(cin, dx_tile_n(cin)), round_up(c, DX_TILE_K)
+    return 27, round_up(cin, tile_n(cin)), round_up(c, TILE_K)
 
 
 def pack_conv_weights_dx(weight: torch.Tensor, cins: Sequence[int],
@@ -98,33 +261,16 @@ def dx_rows(X: int, Y: int, Z: int, halo: bool) -> Tuple[int, int]:
     return (0, (X + 2) * yzp) if halo else (yzp, X * yzp)
 
 
-def dx_smem_bytes(bm: int, nt: int, zp: int, dyg: int) -> int:
-    """Kernel C's dynamic shared memory: two staged runs of dconv rows (a
-    run serves ``dyg`` values of dy) and the weight ring."""
-    run = -(-(bm + (dyg - 1) * zp + 2) * 128 // 1024) * 1024
-    return 1024 + 2 * run + DX_STAGES * nt * 128
-
-
 def dx_rows_per_block(cin: int, X: int, Y: int, Z: int, halo: bool) -> int:
-    """Kernel C's output rows per block: 128 per wgmma M half of 64 that
-    each of its two warpgroups runs, as many as still give DX_MIN_BLOCKS
-    blocks and a run that serves all three dy: 512 (N tiles up to 64
-    only), 256, else 128."""
-    _, rows = dx_rows(X, Y, Z, halo)
-    nt = dx_tile_n(cin)
-    ntiles = -(-cin // nt)
-    for bm in (512, 256):
-        if ((nt <= 64 or bm < 512) and -(-rows // bm) * ntiles >= DX_MIN_BLOCKS
-                and dx_smem_bytes(bm, nt, Z + 2, 3) <= SMEM_LIMIT):
-            return bm
-    return 128
+    """Kernel C's output rows per block (:func:`rows_per_block`)."""
+    return rows_per_block(dx_rows(X, Y, Z, halo)[1], cin, Z)
 
 
 def dx_grid(cin: int, X: int, Y: int, Z: int, halo: bool) -> Tuple[int, int]:
     """Kernel C's grid: (row blocks, N tiles)."""
     _, rows = dx_rows(X, Y, Z, halo)
     bm = dx_rows_per_block(cin, X, Y, Z, halo)
-    return -(-rows // bm), -(-cin // dx_tile_n(cin))
+    return -(-rows // bm), -(-cin // tile_n(cin))
 
 
 def dx_blocks(cin: int, c: int, X: int, Y: int, Z: int, halo: bool
@@ -133,22 +279,24 @@ def dx_blocks(cin: int, c: int, X: int, Y: int, Z: int, halo: bool
     the taps it runs, the dconv channels it contracts), clipped to the
     real extents."""
     row0, rows = dx_rows(X, Y, Z, halo)
-    nt = dx_tile_n(cin)
-    bm = dx_rows_per_block(cin, X, Y, Z, halo)
-    gm, gn = dx_grid(cin, X, Y, Z, halo)
-    for bx in range(gm):
-        r0 = row0 + bx * bm
-        for by in range(gn):
-            yield (range(r0, min(r0 + bm, row0 + rows)),
-                   range(by * nt, min((by + 1) * nt, cin)), range(27),
-                   range(0, c))
+    for r, n in _plan_blocks(row0, rows, cin, Z):
+        yield r, n, range(27), range(0, c)
 
 
-def _wgrad_stages(bk: int, Z: int) -> int:
+# ---------------------------------------------------------------------------
+# kernel D
+# ---------------------------------------------------------------------------
+
+
+def _wgrad_stages(bk: int, Z: int, runs: int = 1) -> int:
     """Stages of a ring of bk-position steps that fit in a block's shared
-    memory beside the static affine: 3, 2 or 0."""
+    memory beside the static affine: 3, 2 or 0. A stage holds the dconv
+    tile and the x rows of ``runs`` runs: one run of the step and its Zp + 1
+    halo rows on each side, or three (one per dy) of the step and one halo
+    row on each side, SR = bk + 8 rows apart."""
     zp = Z + 2
-    stage = -(-(bk + 2 * zp + 2) * 128 // 1024) * 1024 + bk * 128
+    rows = bk + 2 * zp + 2 if runs == 1 else 3 * (bk + 8)
+    stage = -(-rows * 128 // 1024) * 1024 + bk * 128
     for n in (3, 2):
         if 1024 + n * stage <= SMEM_LIMIT - 1024:
             return n
@@ -157,14 +305,20 @@ def _wgrad_stages(bk: int, Z: int) -> int:
 
 def wgrad_step(Z: int) -> int:
     """Kernel D's positions per K step for a Z-deep interior: 256 where two
-    stages of them fit, else 128."""
+    stages of one run fit, else 128."""
     return 256 if _wgrad_stages(256, Z) >= 2 else 128
 
 
+def wgrad_runs(Z: int) -> int:
+    """Kernel D's x runs per stage: 1 (one run serves the three dy) where
+    two stages of it fit (Z up to 317), else 3 (one per dy), which fit at
+    any depth."""
+    return 1 if _wgrad_stages(wgrad_step(Z), Z) >= 2 else 3
+
+
 def wgrad_stages(Z: int) -> int:
-    """Stages of kernel D's ring for a Z-deep interior (0: too deep, the
-    launch is refused)."""
-    return _wgrad_stages(wgrad_step(Z), Z)
+    """Stages of kernel D's ring for a Z-deep interior."""
+    return _wgrad_stages(wgrad_step(Z), Z, wgrad_runs(Z))
 
 
 def wgrad_split(cin: int, cout: int, X: int, Y: int, Z: int

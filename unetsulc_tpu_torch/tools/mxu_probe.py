@@ -1,11 +1,11 @@
-"""Matrix-unit probe: how far the bf16 wmma path of kernel A gets at each
-contraction width, apart from its loads.
+"""Matrix-unit probe: how far the bf16 wmma path gets at each contraction
+width, apart from its loads.
 
-The counterpart of ``scripts/mxu_probe.py``. Kernel A
-(``csrc/conv3x3x3_fwd.cu``) runs its products as ``nvcuda::wmma``
-16x16x16 bf16 fragments loaded from shared memory, as kernels C and D did
-before their ``wgmma`` designs (``csrc/conv3x3x3_dx.cu``,
-``csrc/conv3x3x3_wgrad.cu``). This probe runs that instruction path alone,
+The counterpart of ``scripts/mxu_probe.py``. Kernels A, C and D
+(``csrc/conv3x3x3_fwd.cu``, ``csrc/conv3x3x3_dx.cu``,
+``csrc/conv3x3x3_wgrad.cu``) ran their products as ``nvcuda::wmma``
+16x16x16 bf16 fragments loaded from shared memory before their ``wgmma``
+designs. This probe runs that instruction path alone,
 on operands made in shared memory (``csrc/mxu_probe.cu``), at the
 flagship's conv shapes (ps = 10976 rows, one level-0 plane of the 96^3
 volume), so its time per dot is the ceiling of that path before any load
