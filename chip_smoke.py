@@ -117,10 +117,14 @@ order (each phase aborts the script with a non-zero exit on failure):
    ``slab_build``; ``csrc/mxu_probe.cu``) against their plain versions at
    the JAX probe's shapes (ps 10976, 200 reps, its 11 + 6 + 6
    combinations): o exactly equal, and for the build the whole final slab;
+   two launches of each dot and rdot combination bit-equal;
 20. runs the probe CLI (``unetsulc_tpu_torch.tools.mxu_probe.main([])``)
    with the launch counts zeroed just before (11 / 6 / 6), then times every
    probe launch against its plain version, ``torch.matmul`` on the same
-   bf16 operands (200 calls; none for the build) and its bound;
+   bf16 operands (200 calls; none for the build) and its bound (each dot
+   launch also at its steady rate: the time of its last 100 reps, from a
+   launch of 100), and prints the dot's share of its bound at n = 64 and at
+   n >= 128, and the dot's and rdot's sums against ``torch.matmul``'s;
 21. runs the training CLI end to end in process
    (``unetsulc_tpu_torch.main.main(["-p", ...])``): a 3-fold CV experiment
    of the flagship (init 64, bf16, batch 1, 2 epochs, lr 0.01, momentum
@@ -498,7 +502,9 @@ def phase_build():
     t = time.time()
     logs = kernels.build(ptxas_verbose=True)
     for name, log in logs.items():
-        lines = [ln for ln in log.splitlines() if "registers" in ln or "spill" in ln]
+        # register use, spills and ptxas' notes on serialized wgmmas
+        lines = [ln for ln in log.splitlines()
+                 if any(w in ln for w in ("registers", "spill", "serialized"))]
         print(f"  {name}: " + " | ".join(ln.strip() for ln in lines))
     print(f"build: {time.time() - t:.1f} s", flush=True)
 
@@ -2129,10 +2135,11 @@ def probe_cases():
 def phase_probe_checks(dev):
     """Each probe launch against its plain version at the JAX script's
     shapes: o exactly equal for all three, and for the build the whole
-    final slab too. Every product is exact (0.5 * 0.5 in bf16) and every
-    f32 sum of the dot kernels, in any order, adds terms that are multiples
-    of the f32 spacing at its running total (csrc/mxu_probe.cu, "Exactness"),
-    so a difference is a bug, rdot included."""
+    final slab too, and two launches of each dot and rdot combination bit
+    for bit. Every product is exact (0.5 * 0.5 in bf16) and every f32 sum
+    of the dot kernels, in any order of their atomics, stays exact
+    (csrc/mxu_probe.cu, "Exactness"; tests/test_torch_probe_plan.py replays
+    the order), so a difference is a bug, rdot included."""
     from unetsulc_tpu_torch.tools import mxu_probe as mp
 
     errs = {k: 0.0 for k in PROBE_KERNELS}
@@ -2147,13 +2154,17 @@ def phase_probe_checks(dev):
                   f"slab_build {dims}: the final slab differs from the plain "
                   "version's")
         else:
-            o, po = kern(), plain()
+            o, po, o2 = kern(), plain(), kern()
+            sync()
+            check(torch.equal(o.view(torch.int32), o2.view(torch.int32)),
+                  f"{name} {dims}: two launches differ")
         sync()
         err = float((o - po).abs().max())
         check(torch.equal(o, po), f"{name} {dims}: max |err| {err} against "
               "the plain version (exact expected)")
+        again = "" if name == "slab_build" else ", two launches bit-equal"
         print(f"  {name} {dims}: o[0, 0] = {float(o[0, 0]):.1f}, equal to the "
-              "plain version", flush=True)
+              f"plain version{again}", flush=True)
         errs[name] = max(errs[name], err)
     return errs
 
@@ -2163,7 +2174,9 @@ def phase_probe(dev):
     zeroed just before and read just after (11 / 6 / 6); then every probe
     launch timed against its plain version, ``torch.matmul`` on the same
     bf16 operands from device memory (200 calls: the library's counterpart
-    of one launch; none for the build) and its bound."""
+    of one launch; none for the build) and its bound, and each dot launch
+    at its steady rate (``steady_ms``: 200 reps at the rate of a launch's
+    last 100, the launch of 200 less a launch of 100)."""
     from unetsulc_tpu_torch import kernels
     from unetsulc_tpu_torch.tools import mxu_probe as mp
 
@@ -2180,30 +2193,67 @@ def phase_probe(dev):
           "the probe CLI measured no time")
 
     rows = {k: [] for k in PROBE_KERNELS}
+    half = mp.REPS // 2
     for name, dims, kern, plain, lib, bound, bound_by in probe_cases():
         gk, gp = capture(kern), capture(plain)
         gl = capture(lib) if lib is not None else None
+        # the dots' steady rate: the same launch with half the reps, whose
+        # difference leaves out the launch's fixed costs (o's zero fill, the
+        # operand fill, the folds, the first and last wave)
+        gh = None
+        if name != "slab_build":
+            fn = mp.mxu_dot if name == "mxu_dot" else mp.mxu_rdot
+            gh = capture(lambda fn=fn, dims=dims: fn(*dims, mp.PS, half, dev))
         sync()
-        ms_k, ms_p, ms_l = [], [], []
+        ms_k, ms_p, ms_l, ms_h = [], [], [], []
         for _ in range(3):
             ms_p.append(event_ms(gp, PROBE_REPS))
             ms_k.append(event_ms(gk, PROBE_REPS))
             if gl is not None:
                 ms_l.append(event_ms(gl, PROBE_REPS))
+            if gh is not None:
+                ms_h.append(event_ms(gh, PROBE_REPS))
             ms_k.append(event_ms(gk, PROBE_REPS))
-        del gk, gp, gl
+        del gk, gp, gl, gh
         row = dict(shape=dims, ms=statistics.median(ms_k),
                    plain_ms=statistics.median(ms_p),
                    library_ms=statistics.median(ms_l) if ms_l else None,
                    bound_ms=bound, bound_by=bound_by, max_abs_err=0.0)
+        steady = ""
+        if ms_h:
+            row["steady_ms"] = ((row["ms"] - statistics.median(ms_h))
+                                * mp.REPS / (mp.REPS - half))
+            steady = (f", steady {row['steady_ms'] / mp.REPS * 1e3:.2f} µs "
+                      f"per dot ({bound / row['steady_ms'] * 100:.1f}%)")
         lib_txt = ("none" if row["library_ms"] is None
                    else f"{row['library_ms']:.4f} ms")
         print(f"  {name} {dims}: kernel {row['ms']:.4f} ms "
               f"({row['ms'] / mp.REPS * 1e3:.2f} µs per dot or build), plain "
               f"{row['plain_ms']:.4f} ms, library {lib_txt}, bound "
               f"{bound:.4f} ms ({bound_by}): {bound / row['ms'] * 100:.1f}% "
-              "of it", flush=True)
+              f"of it{steady}", flush=True)
         rows[name].append(row)
+
+    def share(rs, key="ms"):
+        return sum(r["bound_ms"] for r in rs) / sum(r[key] for r in rs) * 100
+
+    def total(rs, key):
+        return sum(r[key] for r in rs)
+
+    dot, rdot = rows["mxu_dot"], rows["mxu_rdot"]
+    n64 = [r for r in dot if r["shape"][1] == 64]
+    wide = [r for r in dot if r["shape"][1] >= 128]
+    print(f"  probe summary: mxu_dot at {share(n64):.1f}% of its bound at "
+          f"n = 64 and {share(wide):.1f}% at n >= 128 (per launch "
+          f"{min(share([r]) for r in wide):.1f}-"
+          f"{max(share([r]) for r in wide):.1f}%), at the steady rate "
+          f"{share(n64, 'steady_ms'):.1f}% and "
+          f"{share(wide, 'steady_ms'):.1f}%; mxu_dot "
+          f"{total(dot, 'ms'):.3f} ms against torch.matmul "
+          f"{total(dot, 'library_ms'):.3f} ms, mxu_rdot "
+          f"{total(rdot, 'ms'):.3f} ms against "
+          f"{total(rdot, 'library_ms'):.3f} ms (sums over "
+          f"{len(dot)} and {len(rdot)} launches)", flush=True)
     return counts, rows
 
 
@@ -2614,6 +2664,8 @@ def main():
                            else sum(r["library_ms"] for r in rs)),
             "timed_launches": len(rs),
             "times_cover": probe_cover,
+            **({"steady_ms": sum(r["steady_ms"] for r in rs)}
+               if "steady_ms" in rs[0] else {}),
             **({"bound_note": "shared-memory bytes at 128 B per clock on "
                 "each SM at clocks.max.sm"} if name == "slab_build" else {}),
         })

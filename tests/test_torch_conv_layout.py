@@ -279,12 +279,20 @@ class _FakeLib:
                 layout.wgrad_stages(Z), layout.wgrad_runs(Z)][what] + (
                     self.off_by if what == 2 else 0)
 
+    def mxu_probe_tile(self, what, a, n, ps, reps, sms):
+        dot, rdot = (layout.dot_plan(a, n, ps, reps, sms),
+                     layout.rdot_plan(a, n, ps, reps, sms))
+        return [layout.PROBE_BLOCKS_PER_SM, layout.PROBE_DOT_ROWS,
+                layout.PROBE_RDOT_CHUNK, layout.probe_tile_n(n), dot[1],
+                rdot[1], dot[0], rdot[0]][what] + (
+                    self.off_by if what == 6 else 0)
+
 
 @pytest.mark.parametrize("name", ["conv3x3x3_fwd", "conv3x3x3_dx",
-                                  "conv3x3x3_wgrad"])
+                                  "conv3x3x3_wgrad", "mxu_probe"])
 def test_loader_checks_tile_constants(name):
-    """Loading kernel A's, C's or D's library compares its exported tile
-    constants with layout.py's and raises on a mismatch."""
+    """Loading kernel A's, C's or D's library, or the probe's, compares its
+    exported tile constants with layout.py's and raises on a mismatch."""
     kernels._check_tiles(name, _FakeLib(0))
     with pytest.raises(RuntimeError, match="tile constants"):
         kernels._check_tiles(name, _FakeLib(128))

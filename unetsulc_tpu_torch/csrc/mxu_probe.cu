@@ -1,7 +1,7 @@
-// Matrix-unit probe for Hopper (sm_90a): how far the bf16 wmma path that
-// kernels A, C and D ran before their wgmma designs gets at the flagship's
-// conv shapes, apart from their loads and pipeline; and the cost of the
-// slab-build pattern in shared memory.
+// Matrix-unit probe for Hopper (sm_90a): how far the wgmma path that
+// kernels A, C and D run gets at the flagship's conv shapes, with both
+// operands in shared memory and nothing loaded from device memory; and the
+// cost of the slab-build pattern in shared memory.
 //
 // Replaces the three Pallas kernels of scripts/mxu_probe.py:
 //   mxu_dot    <- `dot_kernel`   (scripts/mxu_probe.py:24, pallas_call :38)
@@ -23,222 +23,284 @@
 //     launch) the final slab is also written to device memory.
 //
 // The TPU grid `grid=(REPS,)` runs in order on one core, and its first
-// step fills the VMEM scratch. Here the reps are a loop inside each block,
-// after the block has filled its own shared-memory operands, and blocks
-// split the rows of the plane.
+// step fills the VMEM scratch. Here every block fills its own shared-memory
+// operands once, and the reps are work items that a persistent grid splits.
 //
 // What bounds it on this card. mxu_dot and mxu_rdot: operations, 2 * ps *
-// k * n (or m * n) FLOP per rep at the bf16 tensor-core rate; they move
-// no operand bytes. slab_build: shared-memory bandwidth, per rep ps * cs
+// k * n (or m * n) FLOP per rep at the bf16 tensor-core rate; they move no
+// operand bytes. Inside the SM, an m64nNk16 wgmma with both operands in
+// shared memory reads A (64 x 16, 2 KB) and B (16 x N, 32 N bytes) for N / 2
+// clocks of tensor work (4096 bf16 operations a clock per SM): 128 bytes a
+// clock at N = 64, the whole of what shared memory gives, 96 at N = 128 and
+// 85 at N = 192. So at N = 64 the operand reads bound the dot as much as
+// the operations do. slab_build: shared-memory bandwidth, per rep ps * cs
 // * 2 bytes read and copies * ps * cs * 2 bytes written, at 128 bytes a
 // clock on each SM.
 //
-// Design. The dot kernels run kernel A's instruction path and nothing
-// else: a 64 x 64 block tile, four warps of 32 x 32, nvcuda::wmma 16x16x16
-// bf16 fragments loaded from shared memory, f32 accumulators, one
-// __syncthreads per 32-deep K step (where kernel A restages its tiles).
-// The TPU probe holds its operands whole in VMEM (up to 25 MB of `a`); a
-// Hopper block has 227 KB. Since every element of an operand is the same
-// constant, a block holds one 32-deep chunk of `a` and one of `b` and
-// walks K by re-reading them: the products and sums are those of the
-// full operands, and the timed loop loads nothing from device memory. The
-// accumulators carry over the reps, so every rep feeds o and the rep loop
-// cannot be folded; the rows are summed once, after the last rep, and
-// each block adds its sums into o with f32 atomicAdd. mxu_dot's grid is
-// (row blocks of the plane, column blocks of n); mxu_rdot's is (64 x 64
-// tiles of the (m, n) output, splits of the ps rows), since its output is
-// small and its contraction long. A wgmma mode is later work.
+// Design of the dot kernels. Two warpgroups per block, one block per SM,
+// each warpgroup one chain of raw-PTX wgmma.mma_async (csrc/wgmma.cuh) with
+// both operands read from 128-byte-swizzled shared memory through
+// descriptors:
+//   - Operands made once. Since every element of an operand is the same
+//     constant, a block fills one 64-deep K chunk of each operand (whole
+//     128-byte rows, so the swizzle does not change what a row holds), then
+//     one fence.proxy.async and one barrier. A rep walks K by issuing k / 16
+//     (mxu_rdot: its rows / 16) wgmmas that cycle over the chunk's four k16
+//     sub-tiles: the products and sums are those of the full operands.
+//     Inside the work loop there is no barrier, no copy and no load; each
+//     item's wgmmas are one commit group, and wgmma_wait<1> keeps one group
+//     in flight.
+//   - The conv kernels' operand layouts. mxu_dot: A and B K-major, A's rows
+//     the plane's (as A's and C's staged runs), B's the n columns (as their
+//     packed weights). mxu_rdot: A = a^T and B both MN-major, rows of the
+//     plane (as kernel D reads xn^T and dconv); B wider than 64 is stored as
+//     64-column atoms (desc_sw128_mn).
+//   - Each wgmma as wide as the combination allows: N = the widest of 192,
+//     128 and 64 that divides n (so n = 384 runs as two column tiles of 192).
+//   - A persistent, evenly split grid: blocks = SMs (never more than the
+//     items), and block b takes items [b * items / blocks, (b + 1) * items /
+//     blocks). mxu_dot's items are (128-row tile of the plane, N-column
+//     tile, rep), warpgroup w taking the tile's rows 64 w ..; mxu_rdot's are
+//     (64 x N output tile, 256-row chunk of the plane, rep), warpgroup 0
+//     taking the chunk's first half of k16 steps and warpgroup 1 the rest
+//     (both issue the same count, the last of an odd count on zero rows,
+//     so that no control flow depends on the warpgroup: ptxas serializes
+//     the wgmmas of a warpgroup-dependent loop); reps innermost. A
+//     warpgroup keeps its accumulators in registers while consecutive items
+//     share an output tile and folds them into o when the tile changes:
+//     mxu_dot sums its valid rows (rows past ps are computed and not
+//     folded) into one f32 atomicAdd per column, mxu_rdot its whole tile
+//     into one atomicAdd, each through a named barrier of its own
+//     warpgroup.
+// kernels/layout.py mirrors the plan (mxu_probe_tile) and the library
+// loader compares the two.
 //
-// slab_build keeps its block's rows of the slab in shared memory (rows
-// per block chosen so that one wave of blocks covers the plane). Each rep
-// converts its rows' first cs columns into registers, waits, stores them
-// shifted by one row into each of the `copies` column blocks, and waits.
-// A block shifts rows only within its own rows, so its first row is never
-// written. That gives the TPU kernel's exact result: the slab is a fixed
-// point, since bf16(0.25 * 1.0001) = 0.25 (the bf16 spacing at 0.25 is
-// 2^-9), so the row a block's first row would receive from the block
-// above holds the value it already has.
+// slab_build keeps its first design: its block's rows of the slab stay in
+// shared memory (rows per block chosen so that one wave of blocks covers
+// the plane). Each rep converts its rows' first cs columns into registers,
+// waits, stores them shifted by one row into each of the `copies` column
+// blocks, and waits. A block shifts rows only within its own rows, so its
+// first row is never written. That gives the TPU kernel's exact result: the
+// slab is a fixed point, since bf16(0.25 * 1.0001) = 0.25 (the bf16 spacing
+// at 0.25 is 2^-9), so the row a block's first row would receive from the
+// block above holds the value it already has.
 //
-// Exactness. Every product is exact (0.5 * 0.5 in bf16, summed in f32),
-// and a sum stays exact while each term added to it is a multiple of the
-// f32 spacing at its running total. At the probe's shapes (ps 10976, reps
-// 200, k and n and m multiples of 64) every per-element, per-block and
-// cross-block sum of both dot kernels meets that, whatever the order of
-// the atomics, so the kernels agree with their plain versions exactly.
+// Exactness. Every product is exact (0.5 * 0.5 in bf16), and an f32 sum
+// stays exact while each partial is a multiple of the f32 spacing at its
+// own size, which holds for values that are multiples of 2^s below
+// 2^(24 + s). Per accumulator element: each wgmma adds (rows of its k16
+// step) x 0.25, so an element is a multiple of 0.25 below reps * ps / 4 <
+// 2^20 at the probe's shapes. Per warpgroup: all the elements of a tile
+// run hold one value E; mxu_dot adds rows r and r + 8 in each thread, then
+// the eight row groups by a shuffle tree, then the four warps pairwise, so
+// each partial is q x E for q valid rows (q <= 64); mxu_rdot sums a
+// thread's N / 2 elements as a pairwise tree, then the 32 lanes and the
+// four warps likewise, so each partial is 2^i E or 3 x 2^i E. Across
+// blocks: mxu_dot's terms are (valid rows, a multiple of 32 at ps 10976) x
+// reps done x k / 4, multiples of 2^8; mxu_rdot's are 64 N x (rows done) /
+// 4 with rows done a multiple of 16 (256-row chunks, a 224-row last one,
+// split in whole k16 steps), multiples of 2^14, and its largest total
+// (1152 x 128) is below 2^37. So at the probe's shapes (ps 10976, reps 200,
+// the JAX script's 11 + 6 combinations) every sum is exact in any order of
+// the atomics, and the kernels agree with their plain versions exactly;
+// tests/test_torch_probe_plan.py replays the plan's summation order in
+// float32 for each combination.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
-#include <type_traits>
-
-using namespace nvcuda;
+#include "wgmma.cuh"
 
 namespace {
 
-constexpr int BM = 64;  // rows of the output tile
-constexpr int BN = 64;  // columns of the output tile
-constexpr int BK = 32;  // contraction depth per step
-constexpr int THREADS = 128;
-constexpr int LDA_ROW = BK + 8;  // mxu_dot: a chunk (BM x BK), row-major
-constexpr int LDA_COL = BM + 8;  // mxu_rdot: a chunk (BK x BM), read as a^T
-constexpr int LDB = BN + 8;      // b chunk (BK x BN)
-constexpr int LDC = BN + 4;      // f32 tile for the epilogue
-constexpr int TARGET_BLOCKS = 132 * 4;
+using namespace hopper;
+
+constexpr int BLOCKS_PER_SM = 1;
+constexpr int WG = 2;                 // warpgroups per block
+constexpr int THREADS = 128 * WG;
+constexpr int CHUNK_K = 64;           // depth of each operand's chunk
+constexpr int DOT_ROWS = 64 * WG;     // plane rows of a mxu_dot item
+constexpr int RDOT_CHUNK = 256;       // plane rows of a mxu_rdot item
 
 constexpr int BUILD_THREADS = 256;
 constexpr int BUILD_VECS = 8;  // 16-byte vectors of norm per thread, at most
 
-using Acc = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-// s[r * ld + c] = (r < valid_rows ? v : 0) for r < rows, c < cols
-__device__ void fill(__nv_bfloat16* s, int rows, int cols, int ld,
-                     int valid_rows, float v) {
-  const __nv_bfloat16 val = __float2bfloat16(v);
-  const __nv_bfloat16 zero = __float2bfloat16(0.0f);
-  for (int i = threadIdx.x; i < rows * cols; i += blockDim.x) {
-    const int r = i / cols, c = i % cols;
-    s[r * ld + c] = r < valid_rows ? val : zero;
-  }
+// The N of each wgmma: the widest of 192, 128 and 64 that divides n.
+__host__ __device__ int tile_n(int n) {
+  return n % 192 == 0 ? 192 : (n % 128 == 0 ? 128 : 64);
 }
 
-// One 32-deep K step of the warp's 32 x 32 tile: A row-major (mxu_dot) or
-// A^T read col-major from a (BK x BM) chunk (mxu_rdot).
-template <bool TRANSPOSED_A>
-__device__ __forceinline__ void k_step(const __nv_bfloat16* sA,
-                                       const __nv_bfloat16* sB, int wm,
-                                       int wn, Acc (&acc)[2][2]) {
-  using LayoutA =
-      typename std::conditional<TRANSPOSED_A, wmma::col_major,
-                                wmma::row_major>::type;
-#pragma unroll
-  for (int kk = 0; kk < BK; kk += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, LayoutA> fa[2];
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                   wmma::row_major>
-        fb[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      if constexpr (TRANSPOSED_A)
-        wmma::load_matrix_sync(fa[i], sA + kk * LDA_COL + wm + i * 16,
-                               LDA_COL);
-      else
-        wmma::load_matrix_sync(fa[i], sA + (wm + i * 16) * LDA_ROW + kk,
-                               LDA_ROW);
-    }
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::load_matrix_sync(fb[j], sB + kk * LDB + wn + j * 16, LDB);
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-  }
+// 128-byte rows at s: rows [0, valid) hold bf16 0.5, rows [valid, rows) 0
+__device__ void fill_rows(unsigned char* s, int rows, int valid) {
+  __nv_bfloat162 q = __float2bfloat162_rn(0.5f);
+  const uint32_t w = *reinterpret_cast<uint32_t*>(&q);
+  const uint4 half = make_uint4(w, w, w, w);
+  const uint4 zero = make_uint4(0, 0, 0, 0);
+  uint4* v = reinterpret_cast<uint4*>(s);
+  for (int i = threadIdx.x; i < rows * 8; i += blockDim.x)
+    v[i] = (i >> 3) < valid ? half : zero;
 }
 
-__device__ __forceinline__ void store_tile(float* sC, int wm, int wn,
-                                           Acc (&acc)[2][2]) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(sC + (wm + i * 16) * LDC + wn + j * 16,
-                              acc[i][j], LDC, wmma::mem_row_major);
+// named barrier of warpgroup wg's 128 threads (barrier 0 is __syncthreads)
+__device__ __forceinline__ void wg_bar(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
 }
 
-__global__ void __launch_bounds__(THREADS)
-    mxu_dot_kernel(int k, int n, int ps, int reps, float* __restrict__ o) {
-  __shared__ __align__(32) __nv_bfloat16 sA[BM * LDA_ROW];
-  __shared__ __align__(32) __nv_bfloat16 sB[BK * LDB];
-  __shared__ __align__(32) float sC[BM * LDC];
-  const int row0 = blockIdx.x * BM;
-  const int col0 = blockIdx.y * BN;
-  const int rows = min(BM, ps - row0);
-  // rows past the plane's end are 0 in this block's chunk of a
-  fill(sA, BM, BK, LDA_ROW, rows, 0.5f);
-  fill(sB, BK, BN, LDB, BK, 0.5f);
+// pairwise sum of a[LO, LO + LEN), fixed order (see "Exactness")
+template <int LO, int LEN, int S>
+__device__ __forceinline__ float tree_sum(const float (&a)[S]) {
+  if constexpr (LEN == 1)
+    return a[LO];
+  else
+    return tree_sum<LO, LEN / 2>(a) + tree_sum<LO + LEN / 2, LEN - LEN / 2>(a);
+}
+
+// Accumulator fragment of m64nNk16 (f32): register 4 j + 2 h + e of a
+// thread holds row 16 * warp + lane / 4 + 8 h, column 8 j + 2 (lane % 4) + e.
+template <int N>
+__global__ void __launch_bounds__(THREADS, 1)
+    mxu_dot_kernel(int k, int n, int ps, int reps, long long items,
+                   float* __restrict__ o) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* const s = smem_raw + (base - raw);
+  // A: DOT_ROWS rows of CHUNK_K (warpgroup w's 64 at 8 KB w), then B: N
+  // rows of CHUNK_K, then the fold's scratch
+  float* const red = reinterpret_cast<float*>(s + (DOT_ROWS + N) * 128);
+  fill_rows(s, DOT_ROWS + N, DOT_ROWS + N);
+  fence_proxy_async();
   __syncthreads();
 
-  const int warp = threadIdx.x >> 5;
-  const int wm = (warp >> 1) * 32;
-  const int wn = (warp & 1) * 32;
-  Acc acc[2][2];
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int wg = tid >> 7, wi = (tid >> 5) & 3;
+  const int ctiles = n / N;
+  const int ksteps = k / 16;
+  // sub-tile j (K 16 j ..) of a K-major operand starts 32 j bytes into its
+  // rows: 2 j in the descriptor's start address
+  const uint64_t da = desc_sw128(base + wg * 64 * 128);
+  const uint64_t db = desc_sw128(base + DOT_ROWS * 128);
+  long long i = blockIdx.x * items / gridDim.x;
+  const long long i1 = (blockIdx.x + 1) * items / gridDim.x;
+  float acc[N / 2];
+  while (i < i1) {
+    // the output tile: row tile t / ctiles, column tile t % ctiles
+    const long long t = i / reps;
+    const long long end = min(i1, (t + 1) * reps);
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+    for (int e = 0; e < N / 2; ++e) acc[e] = 0.0f;
+    wgmma_fence();
+    for (; i < end; ++i) {
+      for (int j = 0; j + 4 <= ksteps; j += 4) {
 #pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  const int steps = k / BK;
-  for (int r = 0; r < reps; ++r) {
-    for (int s = 0; s < steps; ++s) {
-      k_step<false>(sA, sB, wm, wn, acc);
-      __syncthreads();
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss_m64k16<N, 0, 0>(acc, da + 2 * kk, db + 2 * kk);
+      }
+      if (ksteps & 2) {  // k = 32 (2 mod 4): sub-tiles 0 and 1
+        wgmma_ss_m64k16<N, 0, 0>(acc, da, db);
+        wgmma_ss_m64k16<N, 0, 0>(acc, da + 2, db + 2);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();
     }
-  }
+    wgmma_wait<0>();
 
-  store_tile(sC, wm, wn, acc);
-  __syncthreads();
-  for (int c = threadIdx.x; c < BN; c += THREADS) {
-    float sum = 0.0f;
-    for (int i = 0; i < rows; ++i) sum += sC[i * LDC + c];
-    atomicAdd(o + col0 + c, sum);
+    // fold: the warpgroup's valid rows of each column, into o
+    const int row = (int)(t / ctiles) * DOT_ROWS + wg * 64 + wi * 16 +
+                    (lane >> 2);
+    const bool v0 = row < ps, v1 = row + 8 < ps;
+    float* const mine = red + (wg * 4 + wi) * N;
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float x = (v0 ? acc[4 * j + e] : 0.0f) +
+                  (v1 ? acc[4 * j + 2 + e] : 0.0f);
+        x += __shfl_xor_sync(0xffffffffu, x, 4);
+        x += __shfl_xor_sync(0xffffffffu, x, 8);
+        x += __shfl_xor_sync(0xffffffffu, x, 16);
+        if (lane < 4) mine[8 * j + 2 * lane + e] = x;
+      }
+    }
+    wg_bar(wg);
+    const float* const q = red + wg * 4 * N;
+    float* const col = o + (t % ctiles) * N;
+    for (int c = tid & 127; c < N; c += 128)
+      atomicAdd(col + c, (q[c] + q[N + c]) + (q[2 * N + c] + q[3 * N + c]));
+    wg_bar(wg);
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
-    mxu_rdot_kernel(int m, int n, int ps, int reps, int chunk,
+template <int N>
+__global__ void __launch_bounds__(THREADS, 1)
+    mxu_rdot_kernel(int m, int n, int ps, int reps, long long items,
                     float* __restrict__ o) {
-  __shared__ __align__(32) __nv_bfloat16 sA[BK * LDA_COL];
-  __shared__ __align__(32) __nv_bfloat16 sAtail[BK * LDA_COL];
-  __shared__ __align__(32) __nv_bfloat16 sB[BK * LDB];
-  __shared__ __align__(32) float sC[BM * LDC];
-  __shared__ float warp_sums[THREADS / 32];
-  const long long r0 = (long long)blockIdx.y * chunk;
-  const int rows = (int)min((long long)chunk, (long long)ps - r0);
-  const int full = rows / BK;
-  const int tail = rows % BK;
-  fill(sA, BK, BM, LDA_COL, BK, 0.5f);
-  // the last step of a chunk that is not a multiple of BK: rows (voxels)
-  // past the chunk's end are 0
-  fill(sAtail, BK, BM, LDA_COL, tail, 0.5f);
-  fill(sB, BK, BN, LDB, BK, 0.5f);
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* const s = smem_raw + (base - raw);
+  // rows of the plane, 128 bytes each: A's chunk (CHUNK_K rows of 64 M),
+  // B's chunk (N / 64 atoms of CHUNK_K rows of 64 N), A's tail (16 rows,
+  // the first ps % 16 of them 0.5: the last k16 step of a plane whose rows
+  // are not a multiple of 16), 16 rows of zeros, then the fold's scratch
+  const int tail = ps & 15;
+  fill_rows(s, CHUNK_K + N + 32, CHUNK_K + N + tail);
+  float* const red = reinterpret_cast<float*>(s + (CHUNK_K + N + 32) * 128);
+  fence_proxy_async();
   __syncthreads();
 
-  const int warp = threadIdx.x >> 5;
-  const int wm = (warp >> 1) * 32;
-  const int wn = (warp & 1) * 32;
-  Acc acc[2][2];
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int wg = tid >> 7, wi = (tid >> 5) & 3;
+  const int chunks = (ps + RDOT_CHUNK - 1) / RDOT_CHUNK;
+  const long long per_tile = (long long)chunks * reps;
+  // sub-tile j (rows 16 j ..) of an MN-major operand starts 2048 j bytes
+  // in: 128 j in the descriptor's start address
+  const uint64_t da = desc_sw128(base);
+  const uint64_t dt = desc_sw128(base + (CHUNK_K + N) * 128);
+  const uint64_t dz = desc_sw128(base + (CHUNK_K + N + 16) * 128);
+  const uint64_t db = desc_sw128_mn(base + CHUNK_K * 128, CHUNK_K * 128);
+  long long i = blockIdx.x * items / gridDim.x;
+  const long long i1 = (blockIdx.x + 1) * items / gridDim.x;
+  float acc[N / 2];
+  while (i < i1) {
+    const long long t = i / per_tile;  // the output tile (all tiles are alike)
+    const long long end = min(i1, (t + 1) * per_tile);
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+    for (int e = 0; e < N / 2; ++e) acc[e] = 0.0f;
+    wgmma_fence();
+    for (; i < end; ++i) {
+      const int c = (int)((i % per_tile) / reps);  // the chunk
+      const int rows = min(RDOT_CHUNK, ps - c * RDOT_CHUNK);
+      const int steps = (rows + 15) >> 4;
+      const int half = (steps + 1) >> 1;
+      const int gt = (rows & 15) ? steps - 1 : -1;  // the step on A's tail
+      // both warpgroups issue `half` wgmmas, warpgroup w steps w * half ..,
+      // so that the control flow is the same in both (a warpgroup-dependent
+      // trip count makes ptxas serialize the wgmmas); the step past an odd
+      // count reads the zero rows and adds nothing
+      for (int j = 0; j < half; ++j) {
+        const int g = wg * half + j;
+        const uint64_t off = (uint64_t)((g & 3) * 128);
+        const uint64_t a = g >= steps ? dz : (g == gt ? dt : da + off);
+        wgmma_ss_m64k16<N, 1, 1>(acc, a, db + off);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();
+    }
+    wgmma_wait<0>();
+
+    // fold: the warpgroup's whole tile, into o[0, 0]
+    float x = tree_sum<0, N / 2>(acc);
 #pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  for (int r = 0; r < reps; ++r) {
-    for (int s = 0; s < full; ++s) {
-      k_step<true>(sA, sB, wm, wn, acc);
-      __syncthreads();
-    }
-    if (tail) {
-      k_step<true>(sAtail, sB, wm, wn, acc);
-      __syncthreads();
-    }
-  }
-
-  store_tile(sC, wm, wn, acc);
-  __syncthreads();
-  float sum = 0.0f;
-  for (int i = threadIdx.x; i < BM * BN; i += THREADS)
-    sum += sC[(i / BN) * LDC + i % BN];
-  for (int off = 16; off > 0; off >>= 1)
-    sum += __shfl_down_sync(0xffffffffu, sum, off);
-  if ((threadIdx.x & 31) == 0) warp_sums[warp] = sum;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float total = 0.0f;
-    for (int w = 0; w < THREADS / 32; ++w) total += warp_sums[w];
-    atomicAdd(o, total);
+    for (int off = 16; off > 0; off >>= 1)
+      x += __shfl_xor_sync(0xffffffffu, x, off);
+    if (lane == 0) red[wg * 4 + wi] = x;
+    wg_bar(wg);
+    if ((tid & 127) == 0)
+      atomicAdd(o, (red[wg * 4] + red[wg * 4 + 1]) +
+                       (red[wg * 4 + 2] + red[wg * 4 + 3]));
+    wg_bar(wg);
   }
 }
 
@@ -313,36 +375,96 @@ int sm_count() {
   return sms;
 }
 
+long long dot_items(int n, int ps, int reps) {
+  return (long long)((ps + DOT_ROWS - 1) / DOT_ROWS) * (n / tile_n(n)) * reps;
+}
+
+long long rdot_items(int m, int n, int ps, int reps) {
+  return (long long)(m / 64) * (n / tile_n(n)) *
+         ((ps + RDOT_CHUNK - 1) / RDOT_CHUNK) * reps;
+}
+
+int plan_blocks(long long items, int sms) {
+  const long long cap = (long long)sms * BLOCKS_PER_SM;
+  return (int)(items < cap ? items : cap);
+}
+
+template <int N>
+int launch_dot(int k, int n, int ps, int reps, long long items, int blocks,
+               float* o, cudaStream_t stream) {
+  const int smem = 1024 + (DOT_ROWS + N) * 128 + WG * 4 * N * 4;
+  cudaError_t err = cudaFuncSetAttribute(
+      mxu_dot_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  mxu_dot_kernel<N><<<blocks, THREADS, smem, stream>>>(k, n, ps, reps, items,
+                                                       o);
+  return (int)cudaGetLastError();
+}
+
+template <int N>
+int launch_rdot(int m, int n, int ps, int reps, long long items, int blocks,
+                float* o, cudaStream_t stream) {
+  const int smem = 1024 + (CHUNK_K + N + 32) * 128 + WG * 4 * 4;
+  cudaError_t err = cudaFuncSetAttribute(
+      mxu_rdot_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  mxu_rdot_kernel<N><<<blocks, THREADS, smem, stream>>>(m, n, ps, reps,
+                                                        items, o);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
+
+// The dot kernels' plan, mirrored by kernels/layout.py: what 0 blocks per
+// SM, 1 plane rows of a mxu_dot item, 2 plane rows of a mxu_rdot chunk, 3
+// the wgmma N for n, 4 mxu_dot's items (a = k), 5 mxu_rdot's items (a =
+// m), 6 mxu_dot's blocks and 7 mxu_rdot's blocks on `sms` SMs; -1 for any
+// other `what`.
+extern "C" int mxu_probe_tile(int what, int a, int n, int ps, int reps,
+                              int sms) {
+  switch (what) {
+    case 0: return BLOCKS_PER_SM;
+    case 1: return DOT_ROWS;
+    case 2: return RDOT_CHUNK;
+    case 3: return tile_n(n);
+    case 4: return (int)dot_items(n, ps, reps);
+    case 5: return (int)rdot_items(a, n, ps, reps);
+    case 6: return plan_blocks(dot_items(n, ps, reps), sms);
+    case 7: return plan_blocks(rdot_items(a, n, ps, reps), sms);
+    default: return -1;
+  }
+}
 
 // o: (8, n) f32, zeroed by the caller. k a multiple of 32, n of 64.
 extern "C" int mxu_dot(int k, int n, int ps, int reps, float* o,
                        void* stream) {
-  if (k <= 0 || k % BK || n <= 0 || n % BN || ps <= 0 || reps < 0)
+  if (k <= 0 || k % 32 || n <= 0 || n % 64 || ps <= 0 || reps < 0)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((ps + BM - 1) / BM, n / BN);
-  mxu_dot_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      k, n, ps, reps, o);
-  return (int)cudaGetLastError();
+  const long long items = dot_items(n, ps, reps);
+  const int blocks = plan_blocks(items, sm_count());
+  if (blocks == 0) return (int)cudaSuccess;  // reps 0: o stays 0
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (tile_n(n)) {
+    case 192: return launch_dot<192>(k, n, ps, reps, items, blocks, o, st);
+    case 128: return launch_dot<128>(k, n, ps, reps, items, blocks, o, st);
+    default: return launch_dot<64>(k, n, ps, reps, items, blocks, o, st);
+  }
 }
 
 // o: (8, 128) f32, zeroed by the caller. m and n multiples of 64.
 extern "C" int mxu_rdot(int m, int n, int ps, int reps, float* o,
                         void* stream) {
-  if (m <= 0 || m % BM || n <= 0 || n % BN || ps <= 0 || reps < 0)
+  if (m <= 0 || m % 64 || n <= 0 || n % 64 || ps <= 0 || reps < 0)
     return (int)cudaErrorInvalidValue;
-  const int tiles = (m / BM) * (n / BN);
-  const int steps = (ps + BK - 1) / BK;
-  int splits = (TARGET_BLOCKS + tiles - 1) / tiles;
-  splits = splits < 1 ? 1 : (splits > steps ? steps : splits);
-  const int chunk = ((steps + splits - 1) / splits) * BK;
-  splits = (ps + chunk - 1) / chunk;
-  // blockIdx.x walks the tiles of the output, which all hold the same
-  // values, so the kernel reads only blockIdx.y (its rows)
-  const dim3 grid(tiles, splits);
-  mxu_rdot_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      m, n, ps, reps, chunk, o);
-  return (int)cudaGetLastError();
+  const long long items = rdot_items(m, n, ps, reps);
+  const int blocks = plan_blocks(items, sm_count());
+  if (blocks == 0) return (int)cudaSuccess;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (tile_n(n)) {
+    case 192: return launch_rdot<192>(m, n, ps, reps, items, blocks, o, st);
+    case 128: return launch_rdot<128>(m, n, ps, reps, items, blocks, o, st);
+    default: return launch_rdot<64>(m, n, ps, reps, items, blocks, o, st);
+  }
 }
 
 // Rows of the slab each block of slab_build holds, or 0 if a row does not

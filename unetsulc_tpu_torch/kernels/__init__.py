@@ -9,8 +9,9 @@ mirrored in :mod:`unetsulc_tpu_torch.kernels.layout`, B
 ``gn_stats``, ``gn_apply``, ``gn_bwd_reduce`` and ``gn_bwd_dx``
 (``group_norm.cu``), and the three probe kernels ``mxu_dot``, ``mxu_rdot``
 and ``slab_build`` (``mxu_probe.cu``, driven by
-:mod:`unetsulc_tpu_torch.tools.mxu_probe`). A, C and D also run in a spatial-parallel halo mode
-on a shard's slab of the volume (:mod:`unetsulc_tpu_torch.parallel`): the
+:mod:`unetsulc_tpu_torch.tools.mxu_probe`; the two dot kernels on
+``wgmma`` too, their plan mirrored in :mod:`.layout`). A, C and D also
+run in a spatial-parallel halo mode on a shard's slab of the volume (:mod:`unetsulc_tpu_torch.parallel`): the
 wrappers take the two halo planes and the plane-validity vectors, launch
 the mode's own entry point (``conv3x3x3_fwd_halo``, ``conv3x3x3_dx_halo``,
 ``conv3x3x3_wgrad_halo``) and count it under that name. Each source in
@@ -150,6 +151,9 @@ HELPERS = {
     "gn_partial_blocks": ("group_norm", [_I, _L, _I, _I]),
     # cs, copies, ps -> slab rows per block of slab_build (0: too wide)
     "slab_build_rows": ("mxu_probe", [_I, _I, _I]),
+    # the dot kernels' plan that kernels/layout.py mirrors. what, k or m,
+    # n, ps, reps, sms
+    "mxu_probe_tile": ("mxu_probe", [_I, _I, _I, _I, _I, _I]),
 }
 
 # launches of each kernel since the last reset_launch_counts(): each
@@ -276,6 +280,24 @@ def _check_tiles(name: str, lib: ctypes.CDLL) -> None:
             want[(6, z)] = layout.wgrad_stages(z)
             want[(7, z)] = layout.wgrad_runs(z)
         got = {k: lib.conv3x3x3_wgrad_tile(*k) for k in want}
+    elif name == "mxu_probe":
+        want = {(0, 0, 64, 1, 1, 1): layout.PROBE_BLOCKS_PER_SM,
+                (1, 0, 64, 1, 1, 1): layout.PROBE_DOT_ROWS,
+                (2, 0, 64, 1, 1, 1): layout.PROBE_RDOT_CHUNK}
+        want.update({(3, 0, n, 1, 1, 1): layout.probe_tile_n(n)
+                     for n in (64, 128, 192, 256, 320, 384, 576)})
+        # the probe's shapes and small ones, on an H100's SMs and on few
+        for sms in (132, 7):
+            for ps, reps in ((10976, 200), (40, 2), (200, 3)):
+                for a, n in ((192, 64), (192, 128), (384, 384), (1152, 128),
+                             (64, 192), (192, 576)):
+                    blocks, items = layout.dot_plan(a, n, ps, reps, sms)
+                    want[(4, a, n, ps, reps, sms)] = items
+                    want[(6, a, n, ps, reps, sms)] = blocks
+                    blocks, items, _ = layout.rdot_plan(a, n, ps, reps, sms)
+                    want[(5, a, n, ps, reps, sms)] = items
+                    want[(7, a, n, ps, reps, sms)] = blocks
+        got = {k: lib.mxu_probe_tile(*k) for k in want}
     else:
         return
     if got != want:

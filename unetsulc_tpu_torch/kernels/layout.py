@@ -1,9 +1,10 @@
 """Host-side layout of kernels A (``csrc/conv3x3x3_fwd.cu``), C
 (``csrc/conv3x3x3_dx.cu``) and D (``csrc/conv3x3x3_wgrad.cu``): their tile
-constants, A's and C's weight packing and the three kernels' launch plans,
-in plain Python so that the CPU tests reach them. Each constant mirrors
-one that its library exports (``conv3x3x3_fwd_tile``,
-``conv3x3x3_dx_tile``, ``conv3x3x3_wgrad_tile``); the library loader in
+constants, A's and C's weight packing and the three kernels' launch plans;
+and the plan of the probe's dot kernels (``csrc/mxu_probe.cu``); in plain
+Python so that the CPU tests reach them. Each constant mirrors one that its
+library exports (``conv3x3x3_fwd_tile``, ``conv3x3x3_dx_tile``,
+``conv3x3x3_wgrad_tile``, ``mxu_probe_tile``); the library loader in
 :mod:`unetsulc_tpu_torch.kernels` compares them when it loads the library
 and raises on a mismatch.
 
@@ -352,3 +353,78 @@ def wgrad_blocks(cin: int, cout: int, X: int, Y: int, Z: int
                            range(co, min(co + WGRAD_TILE_CO, cout)),
                            range(dxo * 9, dxo * 9 + 9),
                            range(k0, min(k0 + chunk, kend)))
+
+
+# ---------------------------------------------------------------------------
+# the probe's dot kernels, mxu_dot and mxu_rdot
+# ---------------------------------------------------------------------------
+
+# blocks per SM (two warpgroups each), plane rows of a mxu_dot item (64 per
+# warpgroup) and of a mxu_rdot chunk (8 k16 steps per warpgroup)
+PROBE_BLOCKS_PER_SM = 1
+PROBE_DOT_ROWS = 128
+PROBE_RDOT_CHUNK = 256
+
+
+def probe_tile_n(n: int) -> int:
+    """The N of each probe wgmma for n columns (a multiple of 64): the
+    widest of 192, 128 and 64 that divides n."""
+    return 192 if n % 192 == 0 else (128 if n % 128 == 0 else 64)
+
+
+def _probe_blocks(items: int, sms: int) -> int:
+    return min(items, sms * PROBE_BLOCKS_PER_SM)
+
+
+def dot_plan(k: int, n: int, ps: int, reps: int, sms: int
+             ) -> Tuple[int, int]:
+    """(blocks, items) of a mxu_dot launch on ``sms`` SMs. An item is
+    (128-row tile of the plane, N-column tile, rep), reps innermost; k
+    sets each item's work (k / 16 wgmmas per warpgroup), not the plan."""
+    items = -(-ps // PROBE_DOT_ROWS) * (n // probe_tile_n(n)) * reps
+    return _probe_blocks(items, sms), items
+
+
+def rdot_plan(m: int, n: int, ps: int, reps: int, sms: int
+              ) -> Tuple[int, int, int]:
+    """(blocks, items, chunk rows) of a mxu_rdot launch on ``sms`` SMs. An
+    item is (64 x N output tile, chunk of the plane's rows, rep), reps
+    innermost."""
+    items = ((m // 64) * (n // probe_tile_n(n)) * -(-ps // PROBE_RDOT_CHUNK)
+             * reps)
+    return _probe_blocks(items, sms), items, PROBE_RDOT_CHUNK
+
+
+def block_items(items: int, blocks: int, b: int) -> range:
+    """The items of block b: an even split, within one item per block."""
+    return range(b * items // blocks, (b + 1) * items // blocks)
+
+
+def dot_item(i: int, n: int, ps: int, reps: int
+             ) -> Tuple[int, range, range, int]:
+    """(output tile, plane rows that its fold adds, columns, rep) of
+    mxu_dot item i; warpgroup w runs the tile's rows 64 w .. 64 w + 63,
+    past ps included."""
+    nt = probe_tile_n(n)
+    t, rep = divmod(i, reps)
+    rt, ct = divmod(t, n // nt)
+    r0 = rt * PROBE_DOT_ROWS
+    return (t, range(r0, min(r0 + PROBE_DOT_ROWS, ps)),
+            range(ct * nt, (ct + 1) * nt), rep)
+
+
+def rdot_item(i: int, m: int, n: int, ps: int, reps: int
+              ) -> Tuple[int, range, range, Tuple[range, range], int]:
+    """(output tile, its m rows, its n columns, (plane rows of warpgroup
+    0, of warpgroup 1), rep) of mxu_rdot item i: the chunk's k16 steps,
+    the first half (rounded up) to warpgroup 0."""
+    nt = probe_tile_n(n)
+    per_tile = -(-ps // PROBE_RDOT_CHUNK) * reps
+    t, rest = divmod(i, per_tile)
+    c = rest // reps
+    mt, ct = divmod(t, n // nt)
+    r0 = c * PROBE_RDOT_CHUNK
+    r1 = min(r0 + PROBE_RDOT_CHUNK, ps)
+    split = min(r0 + 16 * ((-(-(r1 - r0) // 16) + 1) // 2), r1)
+    return (t, range(mt * 64, mt * 64 + 64), range(ct * nt, (ct + 1) * nt),
+            (range(r0, split), range(split, r1)), rest % reps)

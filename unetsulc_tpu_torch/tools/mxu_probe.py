@@ -1,19 +1,20 @@
-"""Matrix-unit probe: how far the bf16 wmma path gets at each contraction
-width, apart from its loads.
+"""Matrix-unit probe: how far the bf16 ``wgmma`` path gets at each
+contraction width, apart from its loads.
 
 The counterpart of ``scripts/mxu_probe.py``. Kernels A, C and D
 (``csrc/conv3x3x3_fwd.cu``, ``csrc/conv3x3x3_dx.cu``,
-``csrc/conv3x3x3_wgrad.cu``) ran their products as ``nvcuda::wmma``
-16x16x16 bf16 fragments loaded from shared memory before their ``wgmma``
-designs. This probe runs that instruction path alone,
-on operands made in shared memory (``csrc/mxu_probe.cu``), at the
-flagship's conv shapes (ps = 10976 rows, one level-0 plane of the 96^3
-volume), so its time per dot is the ceiling of that path before any load
-or pipeline cost:
+``csrc/conv3x3x3_wgrad.cu``) run their products as ``wgmma.mma_async``
+with both operands in 128-byte-swizzled shared memory
+(``csrc/wgmma.cuh``). This probe runs that instruction path alone, on
+operands made once in shared memory in the conv kernels' layouts
+(``csrc/mxu_probe.cu``), at the flagship's conv shapes (ps = 10976 rows,
+one level-0 plane of the 96^3 volume), so its time per dot is the ceiling
+of that path before any load or pipeline cost:
 
 * ``mxu_dot``: (ps, K) @ (K, N) for the K/N pairs of the conv's forward
-  and dx passes, ``reps`` dots per launch;
-* ``mxu_rdot``: the weight-gradient row contraction (ps, M)^T @ (ps, N);
+  and dx passes, both operands K-major, ``reps`` dots per launch;
+* ``mxu_rdot``: the weight-gradient row contraction (ps, M)^T @ (ps, N),
+  both operands MN-major;
 * ``slab_build``: ``copies`` shifted stores of a (ps, cs) plane into a
   (ps, copies * cs) slab, the slab-build pattern, in shared memory.
 
@@ -244,7 +245,7 @@ def main(argv: Optional[Sequence[str]] = None) -> List[dict]:
     tables; returns one row per launch (``kind``, its sizes, ``us`` per
     dot or build, ``bound_us``, ``library_us``; times None off the card)."""
     parser = argparse.ArgumentParser(
-        description="Matrix-unit probe: wmma efficiency against K, N")
+        description="Matrix-unit probe: wgmma efficiency against K, N")
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu (plain versions, no "
                              "times)")
