@@ -73,7 +73,8 @@ order (each phase aborts the script with a non-zero exit on failure):
    GroupNorms of the flagship non-fused forward (bf16, G 32), one in f32
    and one with N 2, odd extents and 36 channels: mean and inv rtol 1e-4,
    apply within 1 bf16 ulp, reduce rtol 1e-3 with atol 1e-3 max|p|, dx as
-   kernel C; and gn_stats bit-identical in two runs;
+   kernel C; and gn_stats, gn_bwd_reduce and gn_bwd_dx each bit-identical
+   in two runs at 96^3 x 64;
 13. drives labelling on the non-fused path end to end: a random flagship
    model with the transposed-conv decoder (``interpolate=False``) saved as
    ``.mdsm``, ``label.main`` on phase 5's graphs with the launch counts
@@ -87,7 +88,9 @@ order (each phase aborts the script with a non-zero exit on failure):
 15. holds every GroupNorm launch of one non-fused training step (recorded
    inputs) against its plain version and times it as phase 6 does,
    against one library call (``F.group_norm``;
-   ``aten.native_group_norm_backward``) and its bound (bytes / 3.35 TB/s);
+   ``aten.native_group_norm_backward``) and its bound (bytes / 3.35 TB/s),
+   then prints, for each of the 14 GroupNorm layers, each GroupNorm
+   kernel's time, bound and share of the bound;
 16. holds kernels A, C and D in their spatial-parallel halo modes against
    their plain versions at the flagship's slab shapes: level 0 at space 2
    (48 x 96 x 96 slabs; 32->64, 32->32 and the decoder's 64+128->64; an
@@ -1350,7 +1353,8 @@ def phase_gn_checks(dev):
     """The four GroupNorm kernels against their plain versions at the 14
     GroupNorms of the flagship non-fused forward (bf16, G 32), one in f32,
     and one with N 2, odd extents and a channel count off the 16-byte
-    vectors; gn_stats is the same in two runs."""
+    vectors; gn_stats, gn_bwd_reduce and gn_bwd_dx are each the same in
+    two runs."""
     from unetsulc_tpu_torch.ops import groupnorm as gn
 
     gen = torch.Generator(device=dev).manual_seed(12)
@@ -1367,11 +1371,18 @@ def phase_gn_checks(dev):
             worst[k] = max(worst[k], v)
         print(f"  GN {what}: " + ", ".join(f"{k} {v:.3g}" for k, v in err.items()),
               flush=True)
-    x, _, _, _ = gn_inputs(1, 96 ** 3, 64, torch.bfloat16, gen, dev)
-    a, b = gn.gn_stats(x, 32, 1e-5), gn.gn_stats(x, 32, 1e-5)
-    check(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]),
+    x, g, scale, _ = gn_inputs(1, 96 ** 3, 64, torch.bfloat16, gen, dev)
+    stats = gn.gn_stats(x, 32, 1e-5)
+    check(bit_equal(stats, gn.gn_stats(x, 32, 1e-5)),
           "gn_stats differs between two runs")
-    print("  gn_stats: bit-identical in two runs at 96^3 x 64", flush=True)
+    red = gn.gn_bwd_reduce(x, g, *stats, scale)
+    check(bit_equal(red, gn.gn_bwd_reduce(x, g, *stats, scale)),
+          "gn_bwd_reduce differs between two runs")
+    dx = gn.gn_bwd_dx(x, g, *stats, scale, red[2], red[3])
+    check(bit_equal(dx, gn.gn_bwd_dx(x, g, *stats, scale, red[2], red[3])),
+          "gn_bwd_dx differs between two runs")
+    print("  gn_stats, gn_bwd_reduce, gn_bwd_dx: each bit-identical in two "
+          "runs at 96^3 x 64", flush=True)
     return worst
 
 
@@ -1660,7 +1671,25 @@ def phase_gn_timing(model, step, x, labels):
                       + "\n    ".join(ks), flush=True)
             rows[name].append(timed_row(name, shape, kern, plain, lib,
                                         gn_bound(name, x3, groups), err))
+    gn_layer_shares(rows)
     return rows
+
+
+def gn_layer_shares(rows):
+    """Print each GroupNorm layer's launch of every GroupNorm kernel:
+    time, bound and share of the bound, as phases 6, 10 and 18 print the
+    conv kernels by level. The forward launches come in GN_LAYERS' order,
+    the backward's in reverse."""
+    for i, (layer, ext, c) in enumerate(GN_LAYERS):
+        cells = []
+        for name in GN_KERNELS:
+            rs = rows[name]
+            r = rs[i] if name in ("gn_stats", "gn_apply") else rs[-1 - i]
+            check(r["shape"] == f"{c} @{ext ** 3} voxels",
+                  f"{name}'s launch for {layer} is {r['shape']}")
+            cells.append(f"{name} {r['ms']:.4f} ms / {r['bound_ms']:.4f} "
+                         f"({r['bound_ms'] / r['ms'] * 100:.1f}%)")
+        print(f"  {layer} {ext}^3 x {c}: " + ", ".join(cells), flush=True)
 
 
 # ---------------------------------------------------------------------------

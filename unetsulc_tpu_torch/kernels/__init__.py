@@ -7,7 +7,8 @@ Twelve kernels in seven sources: A ``conv3x3x3_fwd``
 mirrored in :mod:`unetsulc_tpu_torch.kernels.layout`, B
 ``max_pool_buf_fwd``, E ``max_pool_buf_bwd``, and the GroupNorm kernels
 ``gn_stats``, ``gn_apply``, ``gn_bwd_reduce`` and ``gn_bwd_dx``
-(``group_norm.cu``), and the three probe kernels ``mxu_dot``, ``mxu_rdot``
+(``group_norm.cu``; the backward pair's one-wave plan mirrored in
+:mod:`.layout`), and the three probe kernels ``mxu_dot``, ``mxu_rdot``
 and ``slab_build`` (``mxu_probe.cu``, driven by
 :mod:`unetsulc_tpu_torch.tools.mxu_probe`; the two dot kernels on
 ``wgmma`` too, their plan mirrored in :mod:`.layout`). A, C and D also
@@ -117,13 +118,14 @@ KERNELS = {
     # x, dtype, n, s, c, groups, mean, inv, scale, bias, out, stream
     "gn_apply": ("group_norm", [_P, _I, _I, _L, _I, _I, _P, _P, _P, _P, _P,
                                 _P]),
-    # x, g, dtype, n, s, c, groups, mean, inv, scale, nblocks, partial,
-    # nsum, counters, dscale, dbias, sdx, sdxx, stream
+    # x, g, dtype, n, s, c, groups, mean, inv, scale, sms, partial,
+    # counter, dscale, dbias, sdx, sdxx, stream
     "gn_bwd_reduce": ("group_norm", [_P, _P, _I, _I, _L, _I, _I, _P, _P, _P,
-                                     _I, _P, _P, _P, _P, _P, _P, _P, _P]),
-    # x, g, dtype, n, s, c, groups, mean, inv, scale, sdx, sdxx, dx, stream
+                                     _I, _P, _P, _P, _P, _P, _P, _P]),
+    # x, g, dtype, n, s, c, groups, mean, inv, scale, sdx, sdxx, sms, dx,
+    # stream
     "gn_bwd_dx": ("group_norm", [_P, _P, _I, _I, _L, _I, _I, _P, _P, _P, _P,
-                                 _P, _P, _P]),
+                                 _P, _I, _P, _P]),
     # the probe. k, n, ps, reps, o, stream
     "mxu_dot": ("mxu_probe", [_I, _I, _I, _I, _P, _P]),
     # m, n, ps, reps, o, stream
@@ -147,8 +149,11 @@ HELPERS = {
     "conv3x3x3_wgrad_tile": ("conv3x3x3_wgrad", [_I, _I]),
     # c, X, Y, Z
     "max_pool_buf_bwd_ws": ("max_pool_buf_bwd", [_I, _I, _I, _I]),
-    # n, s, c, dtype -> blocks per sample of gn_stats and gn_bwd_reduce
+    # n, s, c, dtype -> blocks per sample of gn_stats
     "gn_partial_blocks": ("group_norm", [_I, _L, _I, _I]),
+    # the GroupNorm backward kernels' plan that kernels/layout.py mirrors.
+    # what, n, s, c, groups, dtype, sms
+    "gn_bwd_tile": ("group_norm", [_I, _I, _L, _I, _I, _I, _I]),
     # cs, copies, ps -> slab rows per block of slab_build (0: too wide)
     "slab_build_rows": ("mxu_probe", [_I, _I, _I]),
     # the dot kernels' plan that kernels/layout.py mirrors. what, k or m,
@@ -243,6 +248,16 @@ def _lib(name: str) -> ctypes.CDLL:
     return lib
 
 
+# (n, s, c, groups, dtype) of the GroupNorm backward plans compared at
+# load: the flagship non-fused model's slabs at batch 1 and 2, one in f32,
+# one whose rows are not whole 16-byte vectors, and the widest rows taken
+GN_PLAN_SLABS = tuple(
+    (n, e ** 3, c, 32, 0) for n in (1, 2)
+    for e, c in ((96, 32), (96, 64), (49, 64), (49, 128), (25, 128),
+                 (25, 256), (13, 256), (13, 512))
+) + ((1, 49 ** 3, 128, 32, 1), (2, 9 * 7 * 5, 36, 12, 0), (3, 5, 2048, 1, 0))
+
+
 def _check_tiles(name: str, lib: ctypes.CDLL) -> None:
     """Raise if a library's exported tile constants differ from the ones
     that :mod:`.layout` packs and plans with."""
@@ -298,6 +313,22 @@ def _check_tiles(name: str, lib: ctypes.CDLL) -> None:
                     want[(5, a, n, ps, reps, sms)] = items
                     want[(7, a, n, ps, reps, sms)] = blocks
         got = {k: lib.mxu_probe_tile(*k) for k in want}
+    elif name == "group_norm":
+        want = {(0, 1, 1, 1, 1, 0, 1): layout.GN_BWD_THREADS,
+                (1, 1, 1, 1, 1, 0, 1): layout.GN_REDUCE_STAGES,
+                (2, 1, 1, 1, 1, 0, 1): layout.GN_REDUCE_SWEEPS,
+                (3, 1, 1, 1, 1, 0, 1): layout.GN_REDUCE_BLOCKS_PER_SM,
+                (4, 1, 1, 1, 1, 0, 1): layout.GN_DX_BLOCKS_PER_SM,
+                (5, 1, 1, 1, 1, 0, 1): layout.GN_DX_UNROLL,
+                (6, 1, 1, 1, 1, 0, 1): layout.GN_STAGE_BYTES}
+        for n, s, c, groups, dtype in GN_PLAN_SLABS:
+            for sms in (132, 7):
+                k = (n, s, c, groups, dtype, sms)
+                plan = layout.gn_reduce_plan(*k)
+                for what, v in zip((7, 8, 9, 10), plan):
+                    want[(what, *k)] = v
+                want[(11, *k)] = layout.gn_dx_blocks(n, s, sms)
+        got = {k: lib.gn_bwd_tile(*k) for k in want}
     else:
         return
     if got != want:
@@ -684,16 +715,28 @@ def _check_gn(x: torch.Tensor, groups: int, g: Optional[torch.Tensor] = None):
     return n, s, c, _GN_DTYPES[x.dtype]
 
 
-def _gn_workspace(n: int, s: int, c: int, code: int, extra: int, device):
-    """(blocks per sample, f32 partial sums (N, B, 2, C) plus ``extra``
-    floats, zeroed int32 tickets (N + 1,))."""
+def _gn_workspace(n: int, s: int, c: int, code: int, device):
+    """gn_stats' (blocks per sample, f32 partial sums (N, B, 2, C), zeroed
+    int32 tickets (N,))."""
     fn = getattr(_lib("group_norm"), "gn_partial_blocks")
     nblocks = fn(n, s, c, code)
     if nblocks < 1:
         raise ValueError(f"GroupNorm slab ({n}, {s}, {c}) not accepted")
-    ws = torch.empty(n * nblocks * 2 * c + extra, dtype=torch.float32,
-                     device=device)
-    return nblocks, ws, torch.zeros(n + 1, dtype=torch.int32, device=device)
+    ws = torch.empty(n * nblocks * 2 * c, dtype=torch.float32, device=device)
+    return nblocks, ws, torch.zeros(n, dtype=torch.int32, device=device)
+
+
+def _gn_bwd_workspace(n: int, s: int, c: int, groups: int, code: int,
+                      sms: int, device):
+    """gn_bwd_reduce's f32 partial sums (N, Bs, 2, C) and zeroed int32
+    ticket counter, as its plan on ``sms`` SMs sizes them."""
+    floats, tickets = layout.gn_reduce_workspace(n, s, c, groups, code, sms)
+    return (torch.empty(floats, dtype=torch.float32, device=device),
+            torch.zeros(tickets, dtype=torch.int32, device=device))
+
+
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def gn_stats(x: torch.Tensor, num_groups: int,
@@ -703,7 +746,7 @@ def gn_stats(x: torch.Tensor, num_groups: int,
     eps), D = S * C / G. Per-block partial sums meet in a fixed order, so
     the result is the same in every run."""
     n, s, c, code = _check_gn(x, num_groups)
-    nblocks, ws, tickets = _gn_workspace(n, s, c, code, 0, x.device)
+    nblocks, ws, tickets = _gn_workspace(n, s, c, code, x.device)
     mean = torch.empty((n, num_groups), dtype=torch.float32, device=x.device)
     inv = torch.empty_like(mean)
     fn = _kernel("gn_stats")
@@ -745,14 +788,16 @@ def gn_bwd_reduce(x: torch.Tensor, g: torch.Tensor, mean: torch.Tensor,
     """Kernel ``gn_bwd_reduce``: (dscale (C,), dbias (C,), sdx (N, G),
     sdxx (N, G)), all f32: dscale = sum over n, s of g * xhat, dbias = sum
     of g, and per (sample, group) sdx = sum dxhat, sdxx = sum dxhat * xhat,
-    with xhat = (x - mean_c) * inv_c and dxhat = g * scale. Deterministic,
-    as :func:`gn_stats`."""
+    with xhat = (x - mean_c) * inv_c and dxhat = g * scale. One wave of
+    blocks (:func:`.layout.gn_reduce_plan`), each writing one partial sum
+    that a fixed-order fold adds up: the same bits in every run."""
     groups = int(mean.shape[1]) if mean.dim() == 2 else 0
     n, s, c, code = _check_gn(x, groups, g)
     for t, what in ((mean, "mean"), (inv, "inv")):
         _check_f32(t, (n, groups), x.device, what)
     _check_f32(scale, (c,), x.device, "scale")
-    nblocks, ws, tickets = _gn_workspace(n, s, c, code, n * 2 * c, x.device)
+    sms = _sm_count(x.device)
+    ws, counter = _gn_bwd_workspace(n, s, c, groups, code, sms, x.device)
     dscale = torch.empty(c, dtype=torch.float32, device=x.device)
     dbias = torch.empty_like(dscale)
     sdx = torch.empty((n, groups), dtype=torch.float32, device=x.device)
@@ -760,10 +805,9 @@ def gn_bwd_reduce(x: torch.Tensor, g: torch.Tensor, mean: torch.Tensor,
     fn = _kernel("gn_bwd_reduce")
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), g.data_ptr(), code, n, s, c, groups,
-                 mean.data_ptr(), inv.data_ptr(), scale.data_ptr(), nblocks,
-                 ws.data_ptr(), ws[n * nblocks * 2 * c:].data_ptr(),
-                 tickets.data_ptr(), dscale.data_ptr(), dbias.data_ptr(),
-                 sdx.data_ptr(), sdxx.data_ptr(),
+                 mean.data_ptr(), inv.data_ptr(), scale.data_ptr(), sms,
+                 ws.data_ptr(), counter.data_ptr(), dscale.data_ptr(),
+                 dbias.data_ptr(), sdx.data_ptr(), sdxx.data_ptr(),
                  torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(err, "gn_bwd_reduce")
     launch_counts["gn_bwd_reduce"] += 1
@@ -786,7 +830,8 @@ def gn_bwd_dx(x: torch.Tensor, g: torch.Tensor, mean: torch.Tensor,
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), g.data_ptr(), code, n, s, c, groups,
                  mean.data_ptr(), inv.data_ptr(), scale.data_ptr(),
-                 sdx.data_ptr(), sdxx.data_ptr(), dx.data_ptr(),
+                 sdx.data_ptr(), sdxx.data_ptr(), _sm_count(x.device),
+                 dx.data_ptr(),
                  torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(err, "gn_bwd_dx")
     launch_counts["gn_bwd_dx"] += 1

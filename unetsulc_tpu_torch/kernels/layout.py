@@ -1,12 +1,13 @@
 """Host-side layout of kernels A (``csrc/conv3x3x3_fwd.cu``), C
 (``csrc/conv3x3x3_dx.cu``) and D (``csrc/conv3x3x3_wgrad.cu``): their tile
 constants, A's and C's weight packing and the three kernels' launch plans;
-and the plan of the probe's dot kernels (``csrc/mxu_probe.cu``); in plain
-Python so that the CPU tests reach them. Each constant mirrors one that its
-library exports (``conv3x3x3_fwd_tile``, ``conv3x3x3_dx_tile``,
-``conv3x3x3_wgrad_tile``, ``mxu_probe_tile``); the library loader in
-:mod:`unetsulc_tpu_torch.kernels` compares them when it loads the library
-and raises on a mismatch.
+the plan of the probe's dot kernels (``csrc/mxu_probe.cu``) and of the
+GroupNorm backward kernels (``csrc/group_norm.cu``); in plain Python so that
+the CPU tests reach them. Each constant mirrors one that its library
+exports (``conv3x3x3_fwd_tile``, ``conv3x3x3_dx_tile``,
+``conv3x3x3_wgrad_tile``, ``mxu_probe_tile``, ``gn_bwd_tile``); the library
+loader in :mod:`unetsulc_tpu_torch.kernels` compares them when it loads the
+library and raises on a mismatch.
 
 Positions. The kernels index the padded (X+2, Y+2, Z+2) buffer by its
 flat position ``(px * Yp + py) * Zp + pz``; a tap (dx, dy, dz) shifts a
@@ -428,3 +429,93 @@ def rdot_item(i: int, m: int, n: int, ps: int, reps: int
     split = min(r0 + 16 * ((-(-(r1 - r0) // 16) + 1) // 2), r1)
     return (t, range(mt * 64, mt * 64 + 64), range(ct * nt, (ct + 1) * nt),
             (range(r0, split), range(split, r1)), rest % reps)
+
+
+# ---------------------------------------------------------------------------
+# the GroupNorm backward kernels, gn_bwd_reduce and gn_bwd_dx
+# ---------------------------------------------------------------------------
+
+# threads that own channel vectors (a gn_bwd_reduce block adds a producer
+# warp), the reduce's ring stages, row sweeps per stage (a stage holds at
+# most GN_STAGE_BYTES of x and as much of g) and blocks per SM, gn_bwd_dx's
+# blocks per SM and rows per thread per loop iteration
+GN_BWD_THREADS = 256
+GN_REDUCE_STAGES = 4
+GN_REDUCE_SWEEPS = 2
+GN_REDUCE_BLOCKS_PER_SM = 1
+GN_DX_BLOCKS_PER_SM = 2
+GN_DX_UNROLL = 4
+GN_STAGE_BYTES = GN_REDUCE_SWEEPS * GN_BWD_THREADS * 16
+
+
+def gn_vec(dtype: int) -> int:
+    """Channels per 16-byte vector: dtype 0 bf16, 1 f32."""
+    return 8 if dtype == 0 else 4
+
+
+def gn_lanes(c: int, dtype: int) -> int:
+    """Row lanes R of a backward block: rows its threads walk together,
+    one thread per 16-byte channel vector of each."""
+    return GN_BWD_THREADS // -(-c // gn_vec(dtype))
+
+
+def gn_blocks_per_sample(n: int, s: int, sms: int, per_sm: int) -> int:
+    """Blocks of each sample: the wave (``per_sm`` on each of ``sms`` SMs)
+    split over the n samples, at least one, at most one per row."""
+    return max(1, min(s, sms * per_sm // n))
+
+
+def gn_block_rows(s: int, bs: int, j: int) -> range:
+    """The rows of a sample that block j of its ``bs`` owns: an even split,
+    within one row of each other."""
+    return range(j * s // bs, (j + 1) * s // bs)
+
+
+def gn_reduce_plan(n: int, s: int, c: int, groups: int, dtype: int,
+                   sms: int) -> Tuple[int, int, int, int]:
+    """(blocks per sample, row lanes, rows per ring stage, folding blocks)
+    of a gn_bwd_reduce launch on ``sms`` SMs: block n * Bs + j owns rows
+    ``gn_block_rows(s, Bs, j)`` of sample n; the last F = min(2 G, max(1,
+    min(N Bs, sms) // 2)) blocks to finish fold units f, f + F, ... (unit
+    u: quantity u % 2 of group u // 2)."""
+    bs = gn_blocks_per_sample(n, s, sms, GN_REDUCE_BLOCKS_PER_SM)
+    lanes = gn_lanes(c, dtype)
+    folders = min(2 * groups, max(1, min(n * bs, sms) // 2))
+    return bs, lanes, GN_REDUCE_SWEEPS * lanes, folders
+
+
+def gn_dx_blocks(n: int, s: int, sms: int) -> int:
+    """Blocks per sample of a gn_bwd_dx launch (rows split as the
+    reduce's)."""
+    return gn_blocks_per_sample(n, s, sms, GN_DX_BLOCKS_PER_SM)
+
+
+def gn_reduce_workspace(n: int, s: int, c: int, groups: int, dtype: int,
+                        sms: int) -> Tuple[int, int]:
+    """(f32 partial sums (N, Bs, 2, C), zeroed int32 tickets) that a
+    gn_bwd_reduce launch needs."""
+    bs = gn_reduce_plan(n, s, c, groups, dtype, sms)[0]
+    return n * bs * 2 * c, 1
+
+
+def gn_fold_columns(ncol: int) -> List[Tuple[int, int, int]]:
+    """How a folding block covers a unit's ``ncol`` columns (per sample):
+    (first column, columns, segments T) of each pass; in a pass, thread k *
+    columns + i sums column i over the partials k, k + T, ... in order, then
+    a pairwise tree over the T segments (:func:`gn_tree_pairs`)."""
+    out = []
+    for cc in range(0, ncol, GN_BWD_THREADS):
+        w = min(GN_BWD_THREADS, ncol - cc)
+        out.append((cc, w, GN_BWD_THREADS // w))
+    return out
+
+
+def gn_tree_pairs(count: int) -> List[Tuple[int, int]]:
+    """The kernels' pairwise tree over ``count`` rows, as (into, from)
+    pairs in the order they are added (pairs of one level are
+    independent): row 0 ends up with ((r0 + r1) + (r2 + r3)) + ..."""
+    pairs, st = [], 1
+    while st < count:
+        pairs += [(k, k + st) for k in range(0, count - st, 2 * st)]
+        st *= 2
+    return pairs
