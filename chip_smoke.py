@@ -73,8 +73,7 @@ order (each phase aborts the script with a non-zero exit on failure):
    GroupNorms of the flagship non-fused forward (bf16, G 32), one in f32
    and one with N 2, odd extents and 36 channels: mean and inv rtol 1e-4,
    apply within 1 bf16 ulp, reduce rtol 1e-3 with atol 1e-3 max|p|, dx as
-   kernel C; and gn_stats, gn_bwd_reduce and gn_bwd_dx each bit-identical
-   in two runs at 96^3 x 64;
+   kernel C; and each of the four bit-identical in two runs at 96^3 x 64;
 13. drives labelling on the non-fused path end to end: a random flagship
    model with the transposed-conv decoder (``interpolate=False``) saved as
    ``.mdsm``, ``label.main`` on phase 5's graphs with the launch counts
@@ -87,10 +86,12 @@ order (each phase aborts the script with a non-zero exit on failure):
    one step, and one step with dropout 0.1 at batch 2;
 15. holds every GroupNorm launch of one non-fused training step (recorded
    inputs) against its plain version and times it as phase 6 does,
-   against one library call (``F.group_norm``;
-   ``aten.native_group_norm_backward``) and its bound (bytes / 3.35 TB/s),
-   then prints, for each of the 14 GroupNorm layers, each GroupNorm
-   kernel's time, bound and share of the bound;
+   against one library call (``F.group_norm`` on a contiguous
+   channels-first copy of x, and also on the channels-first view of its
+   channels-last memory; ``aten.native_group_norm_backward``) and its
+   bound (bytes / 3.35 TB/s), then prints, for each of the 14 GroupNorm
+   layers, each GroupNorm kernel's time, bound and share of the bound, and
+   the ticket memset of gn_stats and gn_bwd_reduce timed alone;
 16. holds kernels A, C and D in their spatial-parallel halo modes against
    their plain versions at the flagship's slab shapes: level 0 at space 2
    (48 x 96 x 96 slabs; 32->64, 32->32 and the decoder's 64+128->64; an
@@ -1353,8 +1354,7 @@ def phase_gn_checks(dev):
     """The four GroupNorm kernels against their plain versions at the 14
     GroupNorms of the flagship non-fused forward (bf16, G 32), one in f32,
     and one with N 2, odd extents and a channel count off the 16-byte
-    vectors; gn_stats, gn_bwd_reduce and gn_bwd_dx are each the same in
-    two runs."""
+    vectors; each of the four is the same in two runs."""
     from unetsulc_tpu_torch.ops import groupnorm as gn
 
     gen = torch.Generator(device=dev).manual_seed(12)
@@ -1371,18 +1371,21 @@ def phase_gn_checks(dev):
             worst[k] = max(worst[k], v)
         print(f"  GN {what}: " + ", ".join(f"{k} {v:.3g}" for k, v in err.items()),
               flush=True)
-    x, g, scale, _ = gn_inputs(1, 96 ** 3, 64, torch.bfloat16, gen, dev)
+    x, g, scale, bias = gn_inputs(1, 96 ** 3, 64, torch.bfloat16, gen, dev)
     stats = gn.gn_stats(x, 32, 1e-5)
     check(bit_equal(stats, gn.gn_stats(x, 32, 1e-5)),
           "gn_stats differs between two runs")
+    y = gn.gn_apply(x, *stats, scale, bias)
+    check(bit_equal(y, gn.gn_apply(x, *stats, scale, bias)),
+          "gn_apply differs between two runs")
     red = gn.gn_bwd_reduce(x, g, *stats, scale)
     check(bit_equal(red, gn.gn_bwd_reduce(x, g, *stats, scale)),
           "gn_bwd_reduce differs between two runs")
     dx = gn.gn_bwd_dx(x, g, *stats, scale, red[2], red[3])
     check(bit_equal(dx, gn.gn_bwd_dx(x, g, *stats, scale, red[2], red[3])),
           "gn_bwd_dx differs between two runs")
-    print("  gn_stats, gn_bwd_reduce, gn_bwd_dx: each bit-identical in two "
-          "runs at 96^3 x 64", flush=True)
+    print("  gn_stats, gn_apply, gn_bwd_reduce, gn_bwd_dx: each "
+          "bit-identical in two runs at 96^3 x 64", flush=True)
     return worst
 
 
@@ -1587,19 +1590,22 @@ def gn_operands(name, args):
     return x3, int(args[2].shape[1]), args[4], ones * 0
 
 
-def gn_library_call(name, args):
+def gn_library_call(name, args, view=False):
     """One PyTorch call computing the same function (a yardstick; the port
-    never calls it): ``F.group_norm`` on the channels-last view for
-    gn_stats and gn_apply (the whole forward), and
-    ``aten.native_group_norm_backward`` for gn_bwd_reduce and gn_bwd_dx
-    (dx, dscale and dbias together). The backward takes channels-first
-    contiguous x and g only: their copies are made here, before timing,
-    and are not in its time."""
+    never calls it): ``F.group_norm`` for gn_stats and gn_apply (the whole
+    forward), and ``aten.native_group_norm_backward`` for gn_bwd_reduce
+    and gn_bwd_dx (dx, dscale and dbias together), each on contiguous
+    channels-first copies of x (and g), made here, before timing, and not
+    in its time. ``view``: ``F.group_norm`` on the channels-first view of
+    x's channels-last memory instead, as this phase timed it before (its
+    moments then run over strided rows)."""
     x3, groups, scale, bias = gn_operands(name, args)
     v, w, b, (n, c, s) = gn_library_args(x3, scale, bias)
-    if name in ("gn_stats", "gn_apply"):
+    if view:
         return lambda: F.group_norm(v, groups, w, b, 1e-5)
     vc = v.contiguous()
+    if name in ("gn_stats", "gn_apply"):
+        return lambda: F.group_norm(vc, groups, w, b, 1e-5)
     gc = args[1].view(v.permute(0, 2, 3, 4, 1).shape).permute(
         0, 4, 1, 2, 3).contiguous()
     _, mean, rstd = torch.ops.aten.native_group_norm(vc, w, b, n, c, s, groups,
@@ -1630,12 +1636,19 @@ def gn_check_call(name, out_k, out_p, what):
 def phase_gn_timing(model, step, x, labels):
     """Every GroupNorm launch of one non-fused training step (its forward
     and its backward), recorded at lr 0, held to its plain version and
-    timed as phase 6 does, against one library call and its bound. Once,
+    timed as phase 6 does, against one library call and its bound; the
+    forward's launches also against ``F.group_norm`` on the channels-last
+    view (``library_view_ms``). gn_stats' and gn_bwd_reduce's ticket
+    memset (one int zeroed by the wrapper's workspace allocation) is
+    timed at each layer on gn_stats' row: ahead of the layer's gn_apply
+    launch, less that launch alone (``memset_ms``: what it adds to a
+    kernel's time), and as a graph of its own (``memset_alone_ms``). Once,
     at 96^3 x 64, the library calls are profiled to show what they launch
     (layout copies included)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from unetsulc_tpu_torch import kernels
     from unetsulc_tpu_torch.train.step import TrainState
 
     calls = []
@@ -1651,26 +1664,48 @@ def phase_gn_timing(model, step, x, labels):
             x3, groups, _, _ = gn_operands(name, args)
             kern = lambda: dispatcher(name)(*args, **kw)  # noqa: E731
             plain = lambda: plain_of[name](*args)  # noqa: E731
+            fwd = name in ("gn_stats", "gn_apply")  # one library call each
             lib = gn_library_call(name, args)
+            libs = {"contiguous": lib}
+            if fwd:
+                libs["view"] = gn_library_call(name, args, view=True)
             shape = f"{int(x3.shape[2])} @{int(x3.shape[1])} voxels"
             err = gn_check_call(name, kern(), plain(), shape)
             sync()
-            key = name in ("gn_stats", "gn_apply")  # one library call each
-            if tuple(x3.shape[1:]) == (96 ** 3, 64) and key not in shown:
-                shown.add(key)
-                lib()
-                sync()
-                with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                    lib()
+            if tuple(x3.shape[1:]) == (96 ** 3, 64) and fwd not in shown:
+                shown.add(fwd)
+                for how, call in libs.items():
+                    call()
                     sync()
-                ks = [f"{e.count}x {e.key[:100]} "
-                      f"{e.self_device_time_total / 1e3:.3f} ms"
-                      for e in prof.key_averages()
-                      if e.device_type == DeviceType.CUDA]
-                print(f"  library call of {name} at 96^3 x 64 launches:\n    "
-                      + "\n    ".join(ks), flush=True)
-            rows[name].append(timed_row(name, shape, kern, plain, lib,
-                                        gn_bound(name, x3, groups), err))
+                    # two calls: the profiler may miss a launch's record
+                    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                        call()
+                        call()
+                        sync()
+                    ks = [f"{e.count}x {e.key[:100]} "
+                          f"{e.self_device_time_total / 1e3:.3f} ms"
+                          for e in prof.key_averages()
+                          if e.device_type == DeviceType.CUDA]
+                    print(f"  two library calls of {name} at 96^3 x 64 "
+                          f"({how}) launch:\n    " + "\n    ".join(ks),
+                          flush=True)
+            row = timed_row(name, shape, kern, plain, lib,
+                            gn_bound(name, x3, groups), err)
+            if fwd:
+                row["library_view_ms"] = graph_ms(libs["view"])
+            if name == "gn_apply":
+                # this layer's gn_stats row came just before
+                n, s, c = (int(v) for v in x3.shape)
+                code = 0 if x3.dtype == torch.bfloat16 else 1
+                sms = torch.cuda.get_device_properties(
+                    x3.device).multi_processor_count
+                alloc = lambda: kernels._gn_workspace(  # noqa: E731
+                    "gn_stats", n, s, c, groups, code, sms, x3.device)
+                rows["gn_stats"][-1].update(
+                    memset_ms=graph_ms(lambda: (alloc(), kern()))
+                    - graph_ms(kern),
+                    memset_alone_ms=graph_ms(alloc))
+            rows[name].append(row)
     gn_layer_shares(rows)
     return rows
 
@@ -1678,8 +1713,10 @@ def phase_gn_timing(model, step, x, labels):
 def gn_layer_shares(rows):
     """Print each GroupNorm layer's launch of every GroupNorm kernel:
     time, bound and share of the bound, as phases 6, 10 and 18 print the
-    conv kernels by level. The forward launches come in GN_LAYERS' order,
-    the backward's in reverse."""
+    conv kernels by level, and the ticket memset (inside the times of
+    gn_stats and gn_bwd_reduce, which each zero one int); then the
+    forward's library times. The forward launches come in GN_LAYERS'
+    order, the backward's in reverse."""
     for i, (layer, ext, c) in enumerate(GN_LAYERS):
         cells = []
         for name in GN_KERNELS:
@@ -1689,7 +1726,17 @@ def gn_layer_shares(rows):
                   f"{name}'s launch for {layer} is {r['shape']}")
             cells.append(f"{name} {r['ms']:.4f} ms / {r['bound_ms']:.4f} "
                          f"({r['bound_ms'] / r['ms'] * 100:.1f}%)")
-        print(f"  {layer} {ext}^3 x {c}: " + ", ".join(cells), flush=True)
+        st = rows["gn_stats"][i]
+        print(f"  {layer} {ext}^3 x {c}: " + ", ".join(cells)
+              + f"; ticket memset {st['memset_ms']:.4f} ms ahead of a kernel "
+              f"({st['memset_alone_ms']:.4f} ms as a graph alone)", flush=True)
+    fwd = [sum(r[k] for r in rows["gn_stats"]) for k in
+           ("ms", "library_ms", "library_view_ms")]
+    fwd[0] += sum(r["ms"] for r in rows["gn_apply"])
+    print(f"  GroupNorm forward (gn_stats + gn_apply, 14 layers): "
+          f"{fwd[0]:.4f} ms; F.group_norm {fwd[1]:.4f} ms on contiguous "
+          f"channels-first copies, {fwd[2]:.4f} ms on the channels-last "
+          f"view", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -2661,6 +2708,9 @@ def main():
         if name == "conv3x3x3_wgrad":
             extra = dict(library_batch_stride_c_ms=sum(
                 r["library_batch_stride_c_ms"] for r in rs))
+        for key in ("library_view_ms", "memset_ms", "memset_alone_ms"):
+            if key in rs[0]:
+                extra[key] = sum(r[key] for r in rs)
         line.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces,

@@ -287,12 +287,26 @@ class _FakeLib:
                 rdot[1], dot[0], rdot[0]][what] + (
                     self.off_by if what == 6 else 0)
 
+    def gn_tile(self, what, n, s, c, groups, dtype, sms):
+        if what < 7:
+            return [layout.GN_THREADS, layout.GN_REDUCE_STAGES,
+                    layout.GN_REDUCE_SWEEPS, layout.GN_REDUCE_BLOCKS_PER_SM,
+                    layout.GN_DX_BLOCKS_PER_SM, layout.GN_DX_UNROLL,
+                    layout.GN_STAGE_BYTES][what]
+        if what == 11:
+            return layout.gn_dx_blocks(n, s, sms)
+        plan = layout.gn_reduce_plan if what < 11 else layout.gn_stats_plan
+        return plan(n, s, c, groups, dtype, sms)[(what - 7) % 5] + (
+            self.off_by if what == 15 else 0)
+
 
 @pytest.mark.parametrize("name", ["conv3x3x3_fwd", "conv3x3x3_dx",
-                                  "conv3x3x3_wgrad", "mxu_probe"])
+                                  "conv3x3x3_wgrad", "mxu_probe",
+                                  "group_norm"])
 def test_loader_checks_tile_constants(name):
-    """Loading kernel A's, C's or D's library, or the probe's, compares its
-    exported tile constants with layout.py's and raises on a mismatch."""
+    """Loading kernel A's, C's or D's library, the probe's or the
+    GroupNorm kernels', compares its exported tile constants with
+    layout.py's and raises on a mismatch."""
     kernels._check_tiles(name, _FakeLib(0))
     with pytest.raises(RuntimeError, match="tile constants"):
         kernels._check_tiles(name, _FakeLib(128))

@@ -1,20 +1,22 @@
-"""The plan of the GroupNorm backward kernels on the CPU, numpy and torch only.
+"""The plan of the four GroupNorm kernels on the CPU, numpy and torch only.
 
-``kernels/layout.py`` (``gn_reduce_plan``, ``gn_dx_blocks``,
-``gn_block_rows``, ``gn_fold_columns``, ``gn_tree_pairs``) mirrors the
-one-wave plan of ``gn_bwd_reduce`` and ``gn_bwd_dx`` in
+``kernels/layout.py`` (``gn_stats_plan``, ``gn_reduce_plan``,
+``gn_dx_blocks``, ``gn_block_rows``, ``gn_fold_columns``,
+``gn_tree_pairs``) mirrors the one-wave plan of ``gn_stats``,
+``gn_apply``, ``gn_bwd_reduce`` and ``gn_bwd_dx`` in
 ``csrc/group_norm.cu``. Here each plan covers every (sample, row, channel)
 of the slab exactly once with blocks within one row of each other, at the
 flagship non-fused model's 14 GroupNorm slabs, the f32 and odd slabs of
 ``chip_smoke.py`` phase 12, on an H100's 132 SMs and on 7; the workspace
-that the wrapper allocates is the plan's; and the reduce's fixed summation
-order (each row lane's sum in row order, a pairwise tree over the lanes,
-each folded column in strided segments over the blocks and a pairwise tree
-over the segments, the group sums in channel order, dscale and dbias over
-the samples in order) replayed in float32 on small slabs gives
-``gn_bwd_reduce_plain``'s result (rtol 1e-5, atol 1e-6 of the largest
-magnitude: two float32 orders of the same sums), the same bits in two
-runs.
+that the wrappers of the two reductions allocate is the plan's; and each
+reduction's fixed summation order (each row lane's sum in row order, a
+pairwise tree over the lanes, each folded column in strided segments over
+the blocks and a pairwise tree over the segments, the group sums in
+channel order; for the backward reduce dscale and dbias over the samples in
+order) replayed in float32 on small slabs gives the plain version's result:
+``gn_stats_plain``'s mean and inv within rtol 1e-5, ``gn_bwd_reduce_plain``'s
+within rtol 1e-5 and atol 1e-6 of the largest magnitude (two float32
+orders of the same sums), the same bits in two runs.
 """
 
 import numpy as np
@@ -44,6 +46,14 @@ IDS = [f"{n}x{s}x{c}-g{g}-{'bf16' if d == 0 else 'f32'}-{sms}sm"
        for n, s, c, g, d, sms in CASES]
 
 
+def _both(first, second):
+    """CASES for each of two kernels sharing a plan: the first keeps IDS
+    (its tests' ids before the second joined them), the second's are
+    prefixed with its name."""
+    return dict(argvalues=[(k, *c) for k in (first, second) for c in CASES],
+                ids=IDS + [f"{second}-{i}" for i in IDS])
+
+
 def _check_blocks(n, s, bs, sms, per_sm):
     """The N * Bs blocks: at most a wave, each sample's rows split into Bs
     contiguous ranges, within one row of each other."""
@@ -62,7 +72,7 @@ def _check_threads(c, dtype, lanes):
     every row of a block once."""
     v = layout.gn_vec(dtype)
     cvs = -(-c // v)
-    assert lanes == layout.GN_BWD_THREADS // cvs and lanes >= 1
+    assert lanes == layout.GN_THREADS // cvs and lanes >= 1
     owner = np.full((lanes, c), -1)
     for t in range(lanes * cvs):
         r, cv = divmod(t, cvs)
@@ -72,40 +82,47 @@ def _check_threads(c, dtype, lanes):
     assert (owner >= 0).all()
 
 
-@pytest.mark.parametrize("n,s,c,groups,dtype,sms", CASES, ids=IDS)
-def test_reduce_plan_covers_each_row_and_channel_once(n, s, c, groups, dtype,
-                                                      sms):
-    bs, lanes, chunk, folders = layout.gn_reduce_plan(n, s, c, groups, dtype,
-                                                      sms)
+@pytest.mark.parametrize("kernel,n,s,c,groups,dtype,sms",
+                         **_both("gn_bwd_reduce", "gn_stats"))
+def test_reduce_plan_covers_each_row_and_channel_once(kernel, n, s, c, groups,
+                                                      dtype, sms):
+    stats = kernel == "gn_stats"
+    plan = layout.gn_stats_plan if stats else layout.gn_reduce_plan
+    bs, lanes, chunk, folders = plan(n, s, c, groups, dtype, sms)
     _check_blocks(n, s, bs, sms, layout.GN_REDUCE_BLOCKS_PER_SM)
     _check_threads(c, dtype, lanes)
-    # a ring stage: whole row sweeps, within its bytes, and (rows of whole
-    # 16-byte vectors) a multiple of 16 bytes for its bulk copy
+    # a ring stage: whole row sweeps of each tensor (gn_stats: twice as
+    # many, of x alone), within its bytes, and (rows of whole 16-byte
+    # vectors) a multiple of 16 bytes for each bulk copy
     esize = 2 if dtype == 0 else 4
-    assert chunk == layout.GN_REDUCE_SWEEPS * lanes
-    assert chunk * c * esize <= layout.GN_STAGE_BYTES
+    tensors = 1 if stats else 2
+    assert chunk == layout.GN_REDUCE_SWEEPS * lanes * (2 if stats else 1)
+    assert tensors * chunk * c * esize <= 2 * layout.GN_STAGE_BYTES
     if c % layout.gn_vec(dtype) == 0:
         assert (chunk * c * esize) % 16 == 0
-    # the folding blocks: at most half the resident blocks, each unit (a
-    # group's sums of g * xhat, or of g) folded by one of them
+    # the folding blocks: at most half the resident blocks, each unit
+    # folded by one of them (gn_stats: both sums of one (sample, group);
+    # gn_bwd_reduce: a group's sums of g * xhat, or of g)
+    nunits = n * groups if stats else 2 * groups
     assert 1 <= folders <= max(1, min(n * bs, sms) // 2)
-    assert folders == min(2 * groups, max(1, min(n * bs, sms) // 2))
+    assert folders == min(nunits, max(1, min(n * bs, sms) // 2))
     units = sorted(u for f in range(folders)
-                   for u in range(f, 2 * groups, folders))
-    assert units == list(range(2 * groups))
+                   for u in range(f, nunits, folders))
+    assert units == list(range(nunits))
     # the fold's passes: each of a unit's columns once, segments filling
     # at most the block
-    cg = c // groups
-    passes = layout.gn_fold_columns(cg)
-    assert sum(w for _, w, _ in passes) == cg
-    assert [p[0] for p in passes] == list(range(0, cg,
-                                                layout.GN_BWD_THREADS))
-    assert all(1 <= w * t <= layout.GN_BWD_THREADS for _, w, t in passes)
+    ncol = (2 if stats else 1) * (c // groups)
+    passes = layout.gn_fold_columns(ncol)
+    assert sum(w for _, w, _ in passes) == ncol
+    assert [p[0] for p in passes] == list(range(0, ncol, layout.GN_THREADS))
+    assert all(1 <= w * t <= layout.GN_THREADS for _, w, t in passes)
 
 
-@pytest.mark.parametrize("n,s,c,groups,dtype,sms", CASES, ids=IDS)
-def test_dx_plan_covers_each_row_and_channel_once(n, s, c, groups, dtype,
-                                                  sms):
+@pytest.mark.parametrize("kernel,n,s,c,groups,dtype,sms",
+                         **_both("gn_bwd_dx", "gn_apply"))
+def test_dx_plan_covers_each_row_and_channel_once(kernel, n, s, c, groups,
+                                                  dtype, sms):
+    # gn_apply runs gn_bwd_dx's plan (gn_tile's code 11 is both)
     bs = layout.gn_dx_blocks(n, s, sms)
     ranges = _check_blocks(n, s, bs, sms, layout.GN_DX_BLOCKS_PER_SM)
     lanes = layout.gn_lanes(c, dtype)
@@ -117,10 +134,11 @@ def test_dx_plan_covers_each_row_and_channel_once(n, s, c, groups, dtype,
         assert seen == list(rows)
 
 
-@pytest.mark.parametrize("n,s,c,groups,dtype,sms", CASES, ids=IDS)
-def test_workspace_is_the_plans(n, s, c, groups, dtype, sms):
-    ws, counter = kernels._gn_bwd_workspace(n, s, c, groups, dtype, sms,
-                                            "cpu")
+@pytest.mark.parametrize("kernel,n,s,c,groups,dtype,sms",
+                         **_both("gn_bwd_reduce", "gn_stats"))
+def test_workspace_is_the_plans(kernel, n, s, c, groups, dtype, sms):
+    ws, counter = kernels._gn_workspace(kernel, n, s, c, groups, dtype, sms,
+                                        "cpu")
     bs = min(s, max(1, sms * layout.GN_REDUCE_BLOCKS_PER_SM // n))
     assert ws.dtype == torch.float32 and ws.numel() == n * bs * 2 * c
     assert counter.dtype == torch.int32 and counter.numel() == 1
@@ -128,7 +146,7 @@ def test_workspace_is_the_plans(n, s, c, groups, dtype, sms):
 
 
 # ---------------------------------------------------------------------------
-# the reduce's summation order, replayed in float32
+# the reductions' summation order, replayed in float32
 # ---------------------------------------------------------------------------
 
 
@@ -139,6 +157,66 @@ def _tree(rows):
     return rows[0]
 
 
+def _partials(first, second, bs, lanes):
+    """(N, Bs, 2, C): each block's per-channel sums of the (N, S, C)
+    float32 values ``first`` and ``second`` (each row lane's rows in
+    order, then the pairwise tree over the lanes)."""
+    n, s, c = first.shape
+    partial = np.zeros((n, bs, 2, c), np.float32)
+    for nn in range(n):
+        for j in range(bs):
+            rows = layout.gn_block_rows(s, bs, j)
+            acc = np.zeros((2, lanes, c), np.float32)
+            for f in range(rows.start, rows.stop, lanes):
+                k = min(lanes, rows.stop - f)
+                acc[0, :k] = acc[0, :k] + first[nn, f:f + k]
+                acc[1, :k] = acc[1, :k] + second[nn, f:f + k]
+            partial[nn, j, 0] = _tree(acc[0])
+            partial[nn, j, 1] = _tree(acc[1])
+    return partial
+
+
+def _fold(cols):
+    """The (ncol,) sums of a unit's (Bs, ncol) partial columns, added as a
+    folding block adds them."""
+    bs, ncol = cols.shape
+    out = np.zeros(ncol, np.float32)
+    for cc, w, segs in layout.gn_fold_columns(ncol):
+        seg = np.zeros((segs, w), np.float32)
+        for k in range(segs):
+            for b in range(k, bs, segs):
+                seg[k] = seg[k] + cols[b, cc:cc + w]
+        out[cc:cc + w] = _tree(seg)
+    return out
+
+
+def _replay_stats(x, groups, eps, sms, dtype):
+    """(mean, inv) in float32, added in the order that gn_stats adds
+    them."""
+    n, s, c = x.shape
+    cg = c // groups
+    bs, lanes, _, _ = layout.gn_stats_plan(n, s, c, groups, dtype, sms)
+    partial = _partials(x, x * x, bs, lanes)
+    denom = np.float32(s * cg)
+    mean = np.zeros((n, groups), np.float32)
+    inv = np.zeros((n, groups), np.float32)
+    for u in range(n * groups):
+        # unit u: both sums of group u % G of sample u // G
+        nn, gi = divmod(u, groups)
+        chans = slice(gi * cg, (gi + 1) * cg)
+        nsum = _fold(np.concatenate([partial[nn][:, 0, chans],
+                                     partial[nn][:, 1, chans]], axis=1))
+        tx = tq = np.float32(0)
+        for ch in range(cg):
+            tx = np.float32(tx + nsum[ch])
+            tq = np.float32(tq + nsum[cg + ch])
+        mu = np.float32(tx / denom)
+        var = np.float32(np.float32(tq / denom) - np.float32(mu * mu))
+        mean[nn, gi] = mu
+        inv[nn, gi] = np.float32(1) / np.sqrt(var + np.float32(eps))
+    return mean, inv
+
+
 def _replay_reduce(x, g, mean, inv, scale, sms, dtype):
     """(dscale, dbias, sdx, sdxx) in float32, added in the order that
     gn_bwd_reduce adds them."""
@@ -146,21 +224,9 @@ def _replay_reduce(x, g, mean, inv, scale, sms, dtype):
     groups = mean.shape[1]
     cg = c // groups
     bs, lanes, _, _ = layout.gn_reduce_plan(n, s, c, groups, dtype, sms)
-    m = np.repeat(mean, cg, axis=1)
-    iv = np.repeat(inv, cg, axis=1)
-    partial = np.zeros((n, bs, 2, c), np.float32)
-    for nn in range(n):
-        for j in range(bs):
-            rows = layout.gn_block_rows(s, bs, j)
-            acc = np.zeros((2, lanes, c), np.float32)
-            for first in range(rows.start, rows.stop, lanes):
-                k = min(lanes, rows.stop - first)
-                xs, gs = x[nn, first:first + k], g[nn, first:first + k]
-                xh = (xs - m[nn]) * iv[nn]
-                acc[0, :k] = acc[0, :k] + gs * xh
-                acc[1, :k] = acc[1, :k] + gs
-            partial[nn, j, 0] = _tree(acc[0])
-            partial[nn, j, 1] = _tree(acc[1])
+    xh = (x - np.repeat(mean, cg, axis=1)[:, None]) * np.repeat(
+        inv, cg, axis=1)[:, None]
+    partial = _partials(g * xh, g, bs, lanes)
     dscale = np.zeros(c, np.float32)
     dbias = np.zeros(c, np.float32)
     sdx = np.zeros((n, groups), np.float32)
@@ -171,14 +237,7 @@ def _replay_reduce(x, g, mean, inv, scale, sms, dtype):
         chans = np.arange(gi * cg, (gi + 1) * cg)
         ds = np.zeros(cg, np.float32)
         for nn in range(n):
-            cols = partial[nn][:, q, chans]
-            nsum = np.zeros(cg, np.float32)
-            for cc, w, segs in layout.gn_fold_columns(cg):
-                seg = np.zeros((segs, w), np.float32)
-                for k in range(segs):
-                    for b in range(k, bs, segs):
-                        seg[k] = seg[k] + cols[b, cc:cc + w]
-                nsum[cc:cc + w] = _tree(seg)
+            nsum = _fold(partial[nn][:, q, chans])
             t = np.float32(0)
             for ch in range(cg):
                 t = np.float32(t + scale[chans[ch]] * nsum[ch])
@@ -189,15 +248,14 @@ def _replay_reduce(x, g, mean, inv, scale, sms, dtype):
 
 
 # (n, s, c, groups, dtype, sms): several blocks, lanes and fold segments,
-# vectors filled and not, more folders than groups and fewer
+# vectors filled and not, more folders than units and fewer
 REPLAY_CASES = [(1, 343, 32, 32, 0, 7), (2, 315, 36, 12, 0, 7),
                 (1, 125, 128, 32, 1, 7), (2, 60, 16, 8, 1, 132),
                 (3, 40, 24, 2, 0, 5), (1, 1000, 64, 32, 0, 132)]
+REPLAY_IDS = ["x".join(map(str, k)) for k in REPLAY_CASES]
 
 
-@pytest.mark.parametrize("n,s,c,groups,dtype,sms", REPLAY_CASES,
-                         ids=["x".join(map(str, k)) for k in REPLAY_CASES])
-def test_reduce_order_gives_the_plain_result(n, s, c, groups, dtype, sms):
+def _replay_inputs(n, s, c, dtype):
     r = np.random.default_rng(s + c)
     tdtype = torch.bfloat16 if dtype == 0 else torch.float32
     x = torch.from_numpy(np.maximum(r.normal(size=(n, s, c)), 0)
@@ -205,6 +263,27 @@ def test_reduce_order_gives_the_plain_result(n, s, c, groups, dtype, sms):
     g = torch.from_numpy((1e-3 * r.normal(size=(n, s, c)))
                          .astype(np.float32)).to(tdtype)
     scale = torch.from_numpy((1 + 0.1 * r.normal(size=c)).astype(np.float32))
+    return x, g, scale
+
+
+@pytest.mark.parametrize("n,s,c,groups,dtype,sms", REPLAY_CASES,
+                         ids=REPLAY_IDS)
+def test_stats_order_gives_the_plain_result(n, s, c, groups, dtype, sms):
+    x, _, _ = _replay_inputs(n, s, c, dtype)
+    want = gn.gn_stats_plain(x, groups, 1e-5)
+    xf = x.float().numpy()
+    got = _replay_stats(xf, groups, 1e-5, sms, dtype)
+    again = _replay_stats(xf, groups, 1e-5, sms, dtype)
+    for a, b, w in zip(got, again, want):
+        assert a.dtype == np.float32
+        assert a.tobytes() == b.tobytes()
+        np.testing.assert_allclose(a, w.numpy(), rtol=1e-5)
+
+
+@pytest.mark.parametrize("n,s,c,groups,dtype,sms", REPLAY_CASES,
+                         ids=REPLAY_IDS)
+def test_reduce_order_gives_the_plain_result(n, s, c, groups, dtype, sms):
+    x, g, scale = _replay_inputs(n, s, c, dtype)
     mean, inv = gn.gn_stats_plain(x, groups, 1e-5)
     want = gn.gn_bwd_reduce_plain(x, g, mean, inv, scale)
     args = [t.float().numpy() for t in (x, g, mean, inv, scale)]

@@ -7,9 +7,9 @@ Twelve kernels in seven sources: A ``conv3x3x3_fwd``
 mirrored in :mod:`unetsulc_tpu_torch.kernels.layout`, B
 ``max_pool_buf_fwd``, E ``max_pool_buf_bwd``, and the GroupNorm kernels
 ``gn_stats``, ``gn_apply``, ``gn_bwd_reduce`` and ``gn_bwd_dx``
-(``group_norm.cu``; the backward pair's one-wave plan mirrored in
-:mod:`.layout`), and the three probe kernels ``mxu_dot``, ``mxu_rdot``
-and ``slab_build`` (``mxu_probe.cu``, driven by
+(``group_norm.cu``; their one-wave plan mirrored in :mod:`.layout`),
+and the three probe kernels ``mxu_dot``, ``mxu_rdot`` and ``slab_build``
+(``mxu_probe.cu``, driven by
 :mod:`unetsulc_tpu_torch.tools.mxu_probe`; the two dot kernels on
 ``wgmma`` too, their plan mirrored in :mod:`.layout`). A, C and D also
 run in a spatial-parallel halo mode on a shard's slab of the volume (:mod:`unetsulc_tpu_torch.parallel`): the
@@ -111,13 +111,13 @@ KERNELS = {
     # kernel E. x, ab, out, cot, c, X, Y, Z, dx, dab, ws, stream
     "max_pool_buf_bwd": ("max_pool_buf_bwd", [_P, _P, _P, _P, _I, _I, _I,
                                               _I, _P, _P, _P, _P]),
-    # GroupNorm. x, dtype, n, s, c, groups, eps, nblocks, partial,
-    # counters, mean, inv, stream
+    # GroupNorm. x, dtype, n, s, c, groups, eps, sms, partial, counter,
+    # mean, inv, stream
     "gn_stats": ("group_norm", [_P, _I, _I, _L, _I, _I, _F, _I, _P, _P, _P,
                                 _P, _P]),
-    # x, dtype, n, s, c, groups, mean, inv, scale, bias, out, stream
-    "gn_apply": ("group_norm", [_P, _I, _I, _L, _I, _I, _P, _P, _P, _P, _P,
-                                _P]),
+    # x, dtype, n, s, c, groups, mean, inv, scale, bias, sms, out, stream
+    "gn_apply": ("group_norm", [_P, _I, _I, _L, _I, _I, _P, _P, _P, _P, _I,
+                                _P, _P]),
     # x, g, dtype, n, s, c, groups, mean, inv, scale, sms, partial,
     # counter, dscale, dbias, sdx, sdxx, stream
     "gn_bwd_reduce": ("group_norm", [_P, _P, _I, _I, _L, _I, _I, _P, _P, _P,
@@ -149,11 +149,9 @@ HELPERS = {
     "conv3x3x3_wgrad_tile": ("conv3x3x3_wgrad", [_I, _I]),
     # c, X, Y, Z
     "max_pool_buf_bwd_ws": ("max_pool_buf_bwd", [_I, _I, _I, _I]),
-    # n, s, c, dtype -> blocks per sample of gn_stats
-    "gn_partial_blocks": ("group_norm", [_I, _L, _I, _I]),
-    # the GroupNorm backward kernels' plan that kernels/layout.py mirrors.
-    # what, n, s, c, groups, dtype, sms
-    "gn_bwd_tile": ("group_norm", [_I, _I, _L, _I, _I, _I, _I]),
+    # the GroupNorm kernels' plan that kernels/layout.py mirrors. what, n,
+    # s, c, groups, dtype, sms
+    "gn_tile": ("group_norm", [_I, _I, _L, _I, _I, _I, _I]),
     # cs, copies, ps -> slab rows per block of slab_build (0: too wide)
     "slab_build_rows": ("mxu_probe", [_I, _I, _I]),
     # the dot kernels' plan that kernels/layout.py mirrors. what, k or m,
@@ -248,9 +246,9 @@ def _lib(name: str) -> ctypes.CDLL:
     return lib
 
 
-# (n, s, c, groups, dtype) of the GroupNorm backward plans compared at
-# load: the flagship non-fused model's slabs at batch 1 and 2, one in f32,
-# one whose rows are not whole 16-byte vectors, and the widest rows taken
+# (n, s, c, groups, dtype) of the GroupNorm plans compared at load: the
+# flagship non-fused model's slabs at batch 1 and 2, one in f32, one whose
+# rows are not whole 16-byte vectors, and the widest rows taken
 GN_PLAN_SLABS = tuple(
     (n, e ** 3, c, 32, 0) for n in (1, 2)
     for e, c in ((96, 32), (96, 64), (49, 64), (49, 128), (25, 128),
@@ -314,7 +312,7 @@ def _check_tiles(name: str, lib: ctypes.CDLL) -> None:
                     want[(7, a, n, ps, reps, sms)] = blocks
         got = {k: lib.mxu_probe_tile(*k) for k in want}
     elif name == "group_norm":
-        want = {(0, 1, 1, 1, 1, 0, 1): layout.GN_BWD_THREADS,
+        want = {(0, 1, 1, 1, 1, 0, 1): layout.GN_THREADS,
                 (1, 1, 1, 1, 1, 0, 1): layout.GN_REDUCE_STAGES,
                 (2, 1, 1, 1, 1, 0, 1): layout.GN_REDUCE_SWEEPS,
                 (3, 1, 1, 1, 1, 0, 1): layout.GN_REDUCE_BLOCKS_PER_SM,
@@ -324,11 +322,12 @@ def _check_tiles(name: str, lib: ctypes.CDLL) -> None:
         for n, s, c, groups, dtype in GN_PLAN_SLABS:
             for sms in (132, 7):
                 k = (n, s, c, groups, dtype, sms)
-                plan = layout.gn_reduce_plan(*k)
-                for what, v in zip((7, 8, 9, 10), plan):
+                for what, v in zip((7, 8, 9, 10), layout.gn_reduce_plan(*k)):
                     want[(what, *k)] = v
                 want[(11, *k)] = layout.gn_dx_blocks(n, s, sms)
-        got = {k: lib.gn_bwd_tile(*k) for k in want}
+                for what, v in zip((12, 13, 14, 15), layout.gn_stats_plan(*k)):
+                    want[(what, *k)] = v
+        got = {k: lib.gn_tile(*k) for k in want}
     else:
         return
     if got != want:
@@ -715,22 +714,12 @@ def _check_gn(x: torch.Tensor, groups: int, g: Optional[torch.Tensor] = None):
     return n, s, c, _GN_DTYPES[x.dtype]
 
 
-def _gn_workspace(n: int, s: int, c: int, code: int, device):
-    """gn_stats' (blocks per sample, f32 partial sums (N, B, 2, C), zeroed
-    int32 tickets (N,))."""
-    fn = getattr(_lib("group_norm"), "gn_partial_blocks")
-    nblocks = fn(n, s, c, code)
-    if nblocks < 1:
-        raise ValueError(f"GroupNorm slab ({n}, {s}, {c}) not accepted")
-    ws = torch.empty(n * nblocks * 2 * c, dtype=torch.float32, device=device)
-    return nblocks, ws, torch.zeros(n, dtype=torch.int32, device=device)
-
-
-def _gn_bwd_workspace(n: int, s: int, c: int, groups: int, code: int,
-                      sms: int, device):
-    """gn_bwd_reduce's f32 partial sums (N, Bs, 2, C) and zeroed int32
-    ticket counter, as its plan on ``sms`` SMs sizes them."""
-    floats, tickets = layout.gn_reduce_workspace(n, s, c, groups, code, sms)
+def _gn_workspace(kernel: str, n: int, s: int, c: int, groups: int,
+                  code: int, sms: int, device):
+    """The f32 partial sums (N, Bs, 2, C) and zeroed int32 ticket counter
+    of a ``kernel`` launch (gn_stats or gn_bwd_reduce), as its plan on
+    ``sms`` SMs sizes them."""
+    floats, tickets = layout.gn_workspace(kernel, n, s, c, groups, code, sms)
     return (torch.empty(floats, dtype=torch.float32, device=device),
             torch.zeros(tickets, dtype=torch.int32, device=device))
 
@@ -743,16 +732,19 @@ def gn_stats(x: torch.Tensor, num_groups: int,
              eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel ``gn_stats``: (mean_g, inv_g), each (N, G) f32, of the
     (N, S, C) slab x: mean = sum x / D, inv = rsqrt(sum x^2 / D - mean^2 +
-    eps), D = S * C / G. Per-block partial sums meet in a fixed order, so
-    the result is the same in every run."""
+    eps), D = S * C / G. One wave of blocks
+    (:func:`.layout.gn_stats_plan`), each writing one partial sum that a
+    fixed-order fold adds up: the same bits in every run."""
     n, s, c, code = _check_gn(x, num_groups)
-    nblocks, ws, tickets = _gn_workspace(n, s, c, code, x.device)
+    sms = _sm_count(x.device)
+    ws, counter = _gn_workspace("gn_stats", n, s, c, num_groups, code, sms,
+                                x.device)
     mean = torch.empty((n, num_groups), dtype=torch.float32, device=x.device)
     inv = torch.empty_like(mean)
     fn = _kernel("gn_stats")
     with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), code, n, s, c, num_groups, float(eps), nblocks,
-                 ws.data_ptr(), tickets.data_ptr(), mean.data_ptr(),
+        err = fn(x.data_ptr(), code, n, s, c, num_groups, float(eps), sms,
+                 ws.data_ptr(), counter.data_ptr(), mean.data_ptr(),
                  inv.data_ptr(),
                  torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(err, "gn_stats")
@@ -776,7 +768,7 @@ def gn_apply(x: torch.Tensor, mean: torch.Tensor, inv: torch.Tensor,
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), code, n, s, c, groups, mean.data_ptr(),
                  inv.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-                 out.data_ptr(),
+                 _sm_count(x.device), out.data_ptr(),
                  torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(err, "gn_apply")
     launch_counts["gn_apply"] += 1
@@ -797,7 +789,8 @@ def gn_bwd_reduce(x: torch.Tensor, g: torch.Tensor, mean: torch.Tensor,
         _check_f32(t, (n, groups), x.device, what)
     _check_f32(scale, (c,), x.device, "scale")
     sms = _sm_count(x.device)
-    ws, counter = _gn_bwd_workspace(n, s, c, groups, code, sms, x.device)
+    ws, counter = _gn_workspace("gn_bwd_reduce", n, s, c, groups, code, sms,
+                                x.device)
     dscale = torch.empty(c, dtype=torch.float32, device=x.device)
     dbias = torch.empty_like(dscale)
     sdx = torch.empty((n, groups), dtype=torch.float32, device=x.device)

@@ -2,10 +2,10 @@
 (``csrc/conv3x3x3_dx.cu``) and D (``csrc/conv3x3x3_wgrad.cu``): their tile
 constants, A's and C's weight packing and the three kernels' launch plans;
 the plan of the probe's dot kernels (``csrc/mxu_probe.cu``) and of the
-GroupNorm backward kernels (``csrc/group_norm.cu``); in plain Python so that
+four GroupNorm kernels (``csrc/group_norm.cu``); in plain Python so that
 the CPU tests reach them. Each constant mirrors one that its library
 exports (``conv3x3x3_fwd_tile``, ``conv3x3x3_dx_tile``,
-``conv3x3x3_wgrad_tile``, ``mxu_probe_tile``, ``gn_bwd_tile``); the library
+``conv3x3x3_wgrad_tile``, ``mxu_probe_tile``, ``gn_tile``); the library
 loader in :mod:`unetsulc_tpu_torch.kernels` compares them when it loads the
 library and raises on a mismatch.
 
@@ -432,20 +432,22 @@ def rdot_item(i: int, m: int, n: int, ps: int, reps: int
 
 
 # ---------------------------------------------------------------------------
-# the GroupNorm backward kernels, gn_bwd_reduce and gn_bwd_dx
+# the GroupNorm kernels: the reductions gn_stats and gn_bwd_reduce, the
+# elementwise passes gn_apply and gn_bwd_dx
 # ---------------------------------------------------------------------------
 
-# threads that own channel vectors (a gn_bwd_reduce block adds a producer
-# warp), the reduce's ring stages, row sweeps per stage (a stage holds at
-# most GN_STAGE_BYTES of x and as much of g) and blocks per SM, gn_bwd_dx's
-# blocks per SM and rows per thread per loop iteration
-GN_BWD_THREADS = 256
+# threads that own channel vectors (a reduction block adds a producer
+# warp), the reductions' ring stages, row sweeps of x and of g per stage of
+# gn_bwd_reduce (a stage holds at most GN_STAGE_BYTES of each; gn_stats'
+# stage holds twice the sweeps of x alone) and blocks per SM, the
+# elementwise passes' blocks per SM and rows per thread per loop iteration
+GN_THREADS = 256
 GN_REDUCE_STAGES = 4
 GN_REDUCE_SWEEPS = 2
 GN_REDUCE_BLOCKS_PER_SM = 1
 GN_DX_BLOCKS_PER_SM = 2
 GN_DX_UNROLL = 4
-GN_STAGE_BYTES = GN_REDUCE_SWEEPS * GN_BWD_THREADS * 16
+GN_STAGE_BYTES = GN_REDUCE_SWEEPS * GN_THREADS * 16
 
 
 def gn_vec(dtype: int) -> int:
@@ -454,9 +456,9 @@ def gn_vec(dtype: int) -> int:
 
 
 def gn_lanes(c: int, dtype: int) -> int:
-    """Row lanes R of a backward block: rows its threads walk together,
+    """Row lanes R of a GroupNorm block: rows its threads walk together,
     one thread per 16-byte channel vector of each."""
-    return GN_BWD_THREADS // -(-c // gn_vec(dtype))
+    return GN_THREADS // -(-c // gn_vec(dtype))
 
 
 def gn_blocks_per_sample(n: int, s: int, sms: int, per_sm: int) -> int:
@@ -471,6 +473,25 @@ def gn_block_rows(s: int, bs: int, j: int) -> range:
     return range(j * s // bs, (j + 1) * s // bs)
 
 
+def _reduction_plan(n, s, c, units, sweeps, dtype, sms):
+    bs = gn_blocks_per_sample(n, s, sms, GN_REDUCE_BLOCKS_PER_SM)
+    lanes = gn_lanes(c, dtype)
+    folders = min(units, max(1, min(n * bs, sms) // 2))
+    return bs, lanes, sweeps * lanes, folders
+
+
+def gn_stats_plan(n: int, s: int, c: int, groups: int, dtype: int,
+                  sms: int) -> Tuple[int, int, int, int]:
+    """(blocks per sample, row lanes, rows per ring stage, folding blocks)
+    of a gn_stats launch on ``sms`` SMs: block n * Bs + j owns rows
+    ``gn_block_rows(s, Bs, j)`` of sample n; a stage holds 2 *
+    GN_REDUCE_SWEEPS sweeps of x; the last F = min(N G, max(1, min(N Bs,
+    sms) // 2)) blocks to finish fold units f, f + F, ... (unit u: the sums
+    of x and of x^2 of group u % G of sample u // G)."""
+    return _reduction_plan(n, s, c, n * groups, 2 * GN_REDUCE_SWEEPS, dtype,
+                           sms)
+
+
 def gn_reduce_plan(n: int, s: int, c: int, groups: int, dtype: int,
                    sms: int) -> Tuple[int, int, int, int]:
     """(blocks per sample, row lanes, rows per ring stage, folding blocks)
@@ -478,23 +499,21 @@ def gn_reduce_plan(n: int, s: int, c: int, groups: int, dtype: int,
     ``gn_block_rows(s, Bs, j)`` of sample n; the last F = min(2 G, max(1,
     min(N Bs, sms) // 2)) blocks to finish fold units f, f + F, ... (unit
     u: quantity u % 2 of group u // 2)."""
-    bs = gn_blocks_per_sample(n, s, sms, GN_REDUCE_BLOCKS_PER_SM)
-    lanes = gn_lanes(c, dtype)
-    folders = min(2 * groups, max(1, min(n * bs, sms) // 2))
-    return bs, lanes, GN_REDUCE_SWEEPS * lanes, folders
+    return _reduction_plan(n, s, c, 2 * groups, GN_REDUCE_SWEEPS, dtype, sms)
 
 
 def gn_dx_blocks(n: int, s: int, sms: int) -> int:
-    """Blocks per sample of a gn_bwd_dx launch (rows split as the
-    reduce's)."""
+    """Blocks per sample of a gn_apply or gn_bwd_dx launch (rows split as
+    the reductions')."""
     return gn_blocks_per_sample(n, s, sms, GN_DX_BLOCKS_PER_SM)
 
 
-def gn_reduce_workspace(n: int, s: int, c: int, groups: int, dtype: int,
-                        sms: int) -> Tuple[int, int]:
+def gn_workspace(kernel: str, n: int, s: int, c: int, groups: int,
+                 dtype: int, sms: int) -> Tuple[int, int]:
     """(f32 partial sums (N, Bs, 2, C), zeroed int32 tickets) that a
-    gn_bwd_reduce launch needs."""
-    bs = gn_reduce_plan(n, s, c, groups, dtype, sms)[0]
+    ``kernel`` launch needs: ``"gn_stats"`` or ``"gn_bwd_reduce"``."""
+    plan = {"gn_stats": gn_stats_plan, "gn_bwd_reduce": gn_reduce_plan}
+    bs = plan[kernel](n, s, c, groups, dtype, sms)[0]
     return n * bs * 2 * c, 1
 
 
@@ -504,9 +523,9 @@ def gn_fold_columns(ncol: int) -> List[Tuple[int, int, int]]:
     columns + i sums column i over the partials k, k + T, ... in order, then
     a pairwise tree over the T segments (:func:`gn_tree_pairs`)."""
     out = []
-    for cc in range(0, ncol, GN_BWD_THREADS):
-        w = min(GN_BWD_THREADS, ncol - cc)
-        out.append((cc, w, GN_BWD_THREADS // w))
+    for cc in range(0, ncol, GN_THREADS):
+        w = min(GN_THREADS, ncol - cc)
+        out.append((cc, w, GN_THREADS // w))
     return out
 
 
