@@ -42,8 +42,12 @@ order (each phase aborts the script with a non-zero exit on failure):
    (``conv3x3x3_wgrad``) rtol 1e-3, atol 1e-3 max|p|; kernel E
    (``max_pool_buf_bwd``) dx bit-equal, d(affine) rtol 1e-3, atol 1e-3
    max|p| (gradients are small, so every atol is relative to the largest
-   magnitude of the tensor); two launches of C and of D on the same
-   inputs bit-equal;
+   magnitude of the tensor), at three flagship levels and 9 x 8 x 11 x 12,
+   with and without an affine, on random inputs and on a buffer quantized
+   to 0, 0.5 and 1 (ties), and at 96^3 and 9 x 8 x 11 also through its C
+   entry point into NaN-filled dx, d(affine) and workspace (an element the
+   kernel does not write shows); two launches of C, of D and of E on the
+   same inputs bit-equal;
 9. drives the training step of the flagship model (seed 0) on
    ``bench.py``'s batch (numpy seed 0, 2% of 96^3 voxels occupied, labels
    0..62 there, -1 elsewhere), SGD lr 0.01, momentum 0.9, through
@@ -64,8 +68,9 @@ order (each phase aborts the script with a non-zero exit on failure):
    and two launches of C and of D bit-equal, and times it as phase 6
    does, against one library call (``aten.convolution_backward`` in bf16,
    channels-last, for C and D; ``max_pool3d_with_indices_backward`` for
-   E) and its bound, printing its share of the bound (and C's and D's by
-   level); D's library call is
+   E) and its bound, printing its share of the bound (and C's, D's and
+   E's by level; beside each E launch, a plain ``copy_`` of its input x,
+   the card's streaming rate on nearly E's bytes); D's library call is
    also timed on the batch-stride-C view that earlier versions of phases
    10 and 18 gave it (PERF.md §7);
 12. holds the four GroupNorm kernels (``gn_stats``, ``gn_apply``,
@@ -127,7 +132,8 @@ order (each phase aborts the script with a non-zero exit on failure):
    probe launch against its plain version, ``torch.matmul`` on the same
    bf16 operands (200 calls; none for the build) and its bound (each dot
    launch also at its steady rate: the time of its last 100 reps, from a
-   launch of 100), and prints the dot's share of its bound at n = 64 and at
+   launch of 100), failing any launch above 105% of its bound (work left
+   out), and prints the dot's share of its bound at n = 64 and at
    n >= 128, and the dot's and rdot's sums against ``torch.matmul``'s;
 21. runs the training CLI end to end in process
    (``unetsulc_tpu_torch.main.main(["-p", ...])``): a 3-fold CV experiment
@@ -969,17 +975,61 @@ def phase_backward_checks(dev):
                    ((9, 8, 11), 12)):
         g = cf.make_geom(*ext)
         buf = rand_buffer(g, c, gen, dev)
-        for aff in (rand_affine(c, gen, dev), None):
-            out = cf.pool_fwd(buf, aff, g)
-            cot = rand_grad(cf.pool_geom(g), c, gen, dev)
-            out_k = cf.pool_bwd(buf, aff, out, cot, g)
-            sync()
-            out_p = cf.max_pool_buf_bwd_plain(buf, aff, out, cot, g)
-            sync()
-            check_pool_bwd(out_k, out_p, f"{ext}x{c}")
+        # ties: the buffer quantized to 0, 0.5 and 1, so that windows hold
+        # equal maxima (the ring stays 0)
+        tied = (torch.round(buf.float() * 2) / 2).clamp(max=1.0).to(buf.dtype)
+        for b, kind in ((buf, "random"), (tied, "tied")):
+            for aff in (rand_affine(c, gen, dev), None):
+                what = (f"{ext}x{c}, {kind}, "
+                        f"{'no affine' if aff is None else 'affine'}")
+                out = cf.pool_fwd(b, aff, g)
+                cot = rand_grad(cf.pool_geom(g), c, gen, dev)
+                out_k = cf.pool_bwd(b, aff, out, cot, g)
+                again = cf.pool_bwd(b, aff, out, cot, g)
+                sync()
+                out_p = cf.max_pool_buf_bwd_plain(b, aff, out, cot, g)
+                sync()
+                check_pool_bwd(out_k, out_p, what)
+                check(bit_equal(tuple(t for t in out_k if t is not None),
+                                tuple(t for t in again if t is not None)),
+                      f"kernel E: two launches differ ({what})")
+                if aff is not None and kind == "random" and ext[0] in (96, 9):
+                    # every dx and dab element written by the kernel: a
+                    # launch into NaN-filled outputs and workspace
+                    dx, dab = pool_bwd_into_nan(b, aff, out, cot)
+                    check_pool_bwd((dx, dab), out_p, f"{what}, into NaN")
         print(f"  E {'x'.join(map(str, ext))} x {c}: dx bit-equal with and "
-              "without an affine, d(affine) within rtol 1e-3", flush=True)
+              "without an affine, on random and tied inputs, d(affine) within "
+              "rtol 1e-3, two launches bit-equal"
+              + (", and into NaN-filled outputs through the C entry point"
+                 if ext[0] in (96, 9) else ""), flush=True)
     return worst
+
+
+def pool_bwd_into_nan(buf, aff, out, cot):
+    """Kernel E through its C entry point, into a dx, a dab and a workspace
+    filled with NaN: any element the kernel fails to write stays NaN. Not
+    a launch of the main path, so not counted."""
+    from unetsulc_tpu_torch import kernels
+    from unetsulc_tpu_torch.kernels import layout
+
+    c = int(buf.shape[3])
+    x, y, z = (int(v) - 2 for v in buf.shape[:3])
+    sms = torch.cuda.get_device_properties(buf.device).multi_processor_count
+    ab = aff.float().contiguous()
+    nan = float("nan")
+    dx = torch.full_like(buf, nan)
+    dab = torch.full((2, c), nan, dtype=torch.float32, device=buf.device)
+    ws = torch.full((layout.pool_bwd_workspace(c, x, y, z, sms),), nan,
+                    dtype=torch.float32, device=buf.device)
+    err = kernels._kernel("max_pool_buf_bwd")(
+        buf.data_ptr(), ab.data_ptr(), out.data_ptr(),
+        cot.to(out.dtype).contiguous().data_ptr(), c, x, y, z, sms,
+        dx.data_ptr(), dab.data_ptr(), ws.data_ptr(),
+        torch.cuda.current_stream(buf.device).cuda_stream)
+    check(err == 0, f"kernel E's C entry point returned CUDA error {err}")
+    sync()
+    return dx, dab
 
 
 def make_batch(dev):
@@ -1020,7 +1070,14 @@ def worst(dists):
 
 
 def kernel_class(key):
-    """Which of the port's kernels a profiler entry is, or "plain"."""
+    """Which of the port's kernels a profiler entry is ("fold": the
+    fixed-order fold that A, C and D launch beside their kernels;
+    "memset": memsets and PyTorch's zero and constant fills), or
+    "plain"."""
+    if "fold_cols_kernel" in key:
+        return "fold"
+    if key.startswith("Memset") or "FillFunctor" in key:
+        return "memset"
     if "conv3x3x3_wgrad_kernel" in key:
         return "D"
     if "conv3x3x3_dx_kernel" in key:
@@ -1039,9 +1096,9 @@ def kernel_class(key):
 
 def profile_step(run, label, top):
     """Where one step's time goes: ``run()`` under the profiler, device time
-    by kernel class (the port's kernels by letter or name, everything else
-    "plain"), the device's busy share of the host-clock time, and the
-    ``top`` largest plain entries."""
+    by kernel class (the port's kernels by letter or name, the fold and
+    the memsets and fills, everything else "plain"), the device's busy
+    share of the host-clock time, and the ``top`` largest plain entries."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1273,14 +1330,23 @@ def phase_backward_timing(model, step, x, labels):
                 bound = pool_bwd_bound(buf)
                 shape = f"{int(buf.shape[3])} @{g.X}x{g.Y}x{g.Z}"
                 err = check_pool_bwd(kern(), plain(), shape)
+                # the card's streaming rate on E's bytes: a plain copy of x
+                dst = torch.empty_like(buf)
+                copy_ms = graph_ms(lambda: dst.copy_(buf))
             sync()
             rows[name].append(timed_row(name, shape, kern, plain, lib, bound,
                                         err))
+            if name == "max_pool_buf_bwd":
+                rows[name][-1]["copy_ms"] = copy_ms
+                moved = 2.0 * buf.numel() * buf.element_size()
+                print(f"    a copy_ of x ({moved / 1e6:.0f} MB moved): "
+                      f"{copy_ms:.4f} ms, {moved / copy_ms / 1e9:.2f} TB/s",
+                      flush=True)
             if name == "conv3x3x3_wgrad":
                 rows[name][-1]["library_batch_stride_c_ms"] = old_lib
                 print(f"    library on the batch-stride-C view (the earlier "
                       f"yardstick): {old_lib:.4f} ms", flush=True)
-    for name in ("conv3x3x3_dx", "conv3x3x3_wgrad"):
+    for name in names:
         level_shares(name, rows[name])
     return rows
 
@@ -2165,6 +2231,9 @@ PROBE_REPLACES = {"mxu_dot": "scripts/mxu_probe.py:24",
 # graph replays between one pair of CUDA events, per timed turn of a probe
 # launch (each launch already runs 200 dots or builds)
 PROBE_REPS = 3
+# the highest share of its bound a probe launch may read (timing noise
+# above 100%)
+PROBE_MAX_SHARE = 1.05
 
 
 def probe_cases():
@@ -2308,6 +2377,11 @@ def phase_probe(dev):
               f"{row['plain_ms']:.4f} ms, library {lib_txt}, bound "
               f"{bound:.4f} ms ({bound_by}): {bound / row['ms'] * 100:.1f}% "
               f"of it{steady}", flush=True)
+        # faster than the bound is work left out: the build's slab is a
+        # fixed point, so its equality check alone cannot see skipped stores
+        check(bound / row["ms"] <= PROBE_MAX_SHARE,
+              f"{name} {dims}: {bound / row['ms'] * 100:.1f}% of its bound, "
+              f"above {PROBE_MAX_SHARE * 100:.0f}%")
         rows[name].append(row)
 
     def share(rs, key="ms"):
@@ -2708,7 +2782,8 @@ def main():
         if name == "conv3x3x3_wgrad":
             extra = dict(library_batch_stride_c_ms=sum(
                 r["library_batch_stride_c_ms"] for r in rs))
-        for key in ("library_view_ms", "memset_ms", "memset_alone_ms"):
+        for key in ("library_view_ms", "memset_ms", "memset_alone_ms",
+                    "copy_ms"):
             if key in rs[0]:
                 extra[key] = sum(r[key] for r in rs)
         line.append({

@@ -280,12 +280,28 @@ class _FakeLib:
                     self.off_by if what == 2 else 0)
 
     def mxu_probe_tile(self, what, a, n, ps, reps, sms):
+        if what >= 12:
+            return layout.build_plan(a, n, ps, sms)[what - 12]
+        if what >= 8:
+            return [layout.PROBE_BUILD_STRIPS, layout.PROBE_BUILD_SEG,
+                    layout.PROBE_BUILD_ROWS,
+                    layout.PROBE_BUILD_MIN_STRIP][what - 8]
         dot, rdot = (layout.dot_plan(a, n, ps, reps, sms),
                      layout.rdot_plan(a, n, ps, reps, sms))
         return [layout.PROBE_BLOCKS_PER_SM, layout.PROBE_DOT_ROWS,
                 layout.PROBE_RDOT_CHUNK, layout.probe_tile_n(n), dot[1],
                 rdot[1], dot[0], rdot[0]][what] + (
                     self.off_by if what == 6 else 0)
+
+    def max_pool_buf_bwd_tile(self, what, c, X, Y, Z, sms):
+        if what < 4:
+            return [layout.POOL_BWD_THREADS, layout.POOL_BWD_BLOCKS_PER_SM,
+                    layout.POOL_BWD_FOLD_COLS,
+                    layout.POOL_BWD_FOLD_BATCH][what]
+        if what == 7:
+            return layout.pool_bwd_workspace(c, X, Y, Z, sms)
+        return layout.pool_bwd_plan(c, X, Y, Z, sms)[what - 4] + (
+            self.off_by if what == 4 else 0)
 
     def gn_tile(self, what, n, s, c, groups, dtype, sms):
         if what < 7:
@@ -302,9 +318,9 @@ class _FakeLib:
 
 @pytest.mark.parametrize("name", ["conv3x3x3_fwd", "conv3x3x3_dx",
                                   "conv3x3x3_wgrad", "mxu_probe",
-                                  "group_norm"])
+                                  "group_norm", "max_pool_buf_bwd"])
 def test_loader_checks_tile_constants(name):
-    """Loading kernel A's, C's or D's library, the probe's or the
+    """Loading kernel A's, C's, D's or E's library, the probe's or the
     GroupNorm kernels', compares its exported tile constants with
     layout.py's and raises on a mismatch."""
     kernels._check_tiles(name, _FakeLib(0))

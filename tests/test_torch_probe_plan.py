@@ -11,6 +11,12 @@ accumulator element over a block's items, per warpgroup as the kernel folds,
 and across blocks in forward and reversed order: it must give ``dot_value``
 and ``rdot_value`` exactly, as phase 19 of ``chip_smoke.py`` requires of the
 kernels on the card.
+
+``slab_build``'s plan (``build_plan``, ``build_units``) splits the plane's
+rows into strips and a row's vectors into segments: every (row, vector)
+has one owner at the JAX probe's six combinations and at ps 40; and each
+strip's bottom-up schedule (``build_schedule``), replayed on distinct
+values, gives the plain shift restricted to the strip.
 """
 
 import collections
@@ -227,3 +233,78 @@ def test_rdot_summation_is_exact(m, n, ps, reps, sms):
     if ps == mp.PS:
         spacing = float(np.spacing(np.float32(want)))
         assert all(float(t) % spacing == 0 for t in terms)
+
+
+# ---------------------------------------------------------------------------
+# slab_build: strips and their schedule
+# ---------------------------------------------------------------------------
+
+BUILD_CASES = ([(cs, c, mp.PS, H100_SMS) for cs, c in mp.BUILD_COMBOS]
+               + [(cs, c, 40, sms) for cs, c in mp.BUILD_COMBOS
+                  for sms in (H100_SMS, 7)]
+               + [(8, 2, 200, H100_SMS), (2048, 1, 600, H100_SMS)])
+
+
+@pytest.mark.parametrize("cs,copies,ps,sms", BUILD_CASES,
+                         ids=_ids(BUILD_CASES))
+def test_build_strips_partition_the_plane(cs, copies, ps, sms):
+    blocks, warps, segs, rows = layout.build_plan(cs, copies, ps, sms)
+    assert rows == -(-ps // blocks)
+    assert rows * copies * cs * 2 <= layout.SMEM_LIMIT
+    assert warps <= layout.PROBE_BUILD_MAX_WARPS
+    units = layout.build_units(cs, copies, ps, sms)
+    assert len(units) == blocks * layout.PROBE_BUILD_STRIPS * segs
+    owners = collections.Counter()
+    per_warp = collections.Counter()
+    for b, warp, vecs, strip in units:
+        block_rows = layout.block_items(ps, blocks, b)
+        assert block_rows.start <= strip.start <= strip.stop <= block_rows.stop
+        assert len(vecs) <= layout.PROBE_BUILD_SEG
+        # the warp's four quarters hold every row of the strip once
+        lane_rows = [r for q in range(4)
+                     for r in layout.build_lane_rows(strip, q)]
+        assert sorted(lane_rows) == list(strip)
+        owners.update((r, k) for r in strip for k in vecs)
+        per_warp[b, warp] += 1
+    assert set(owners.values()) == {1}
+    assert set(owners) == {(r, k) for r in range(ps) for k in range(cs // 8)}
+    # the warps of a block share its units evenly
+    assert max(per_warp.values()) - min(per_warp.values()) <= 1
+    if ps == mp.PS:
+        # at the probe's plane: one block per SM, strips of at least the
+        # minimum (the rows whose stores a strip leaves out, one per strip)
+        assert blocks == sms
+        assert min(len(u[3]) for u in units) >= layout.PROBE_BUILD_MIN_STRIP
+
+
+def _replay_strip(strip, reps):
+    """One unit's column over ``reps`` builds in the kernel's schedule, on
+    distinct values, with an injective stand-in for the norm (2 v + 1)."""
+    col = {r: float(1000 + r) for r in strip}
+    loaded = []
+    for op, rows in layout.build_schedule(strip, reps):
+        if op == "load":
+            loaded.append([(r, col[r]) for r in rows])
+        else:
+            got = loaded.pop(0)
+            assert [r for r, _ in got] == rows
+            for r, v in got:
+                if r + 1 < strip.stop:
+                    col[r + 1] = 2 * v + 1
+    assert not loaded
+    return [col[r] for r in strip]
+
+
+def _plain_strip(strip, reps):
+    col = [float(1000 + r) for r in strip]
+    for _ in range(reps):
+        col = col[:1] + [2 * v + 1 for v in col[:-1]]
+    return col
+
+
+@pytest.mark.parametrize("length", [1, 2, 7, 8, 9, 15, 16, 17, 20, 21, 24,
+                                    25, 31, 32])
+@pytest.mark.parametrize("reps", [0, 1, 2, 5])
+def test_build_schedule_gives_the_plain_shift(length, reps):
+    strip = range(100, 100 + length)
+    assert _replay_strip(strip, reps) == _plain_strip(strip, reps)

@@ -1,11 +1,16 @@
-// Deterministic column sums for the kernels' partial sums.
+// Deterministic sums of the kernels' partial sums.
 //
-// out[c] += sum over r < rows of in[r * cols + c], each column summed in a
-// fixed order (no atomics), so the result is the same in every run. A
-// kernel writes one row of partials per block (or per split) and the fold
-// adds them up: in segments of rows first when there are too few columns
-// to fill the card, then the segments' sums. The order depends only on
-// rows and cols.
+// fold_cols: out[c] += sum over r < rows of in[r * cols + c], each column
+// summed in a fixed order (no atomics), so the result is the same in every
+// run. A kernel writes one row of partials per block (or per split) and the
+// fold adds them up: in segments of rows first when there are too few
+// columns to fill the card, then the segments' sums. The order depends only
+// on rows and cols.
+//
+// The in-kernel fold of the one-wave kernels (group_norm.cu,
+// max_pool_buf_bwd.cu): every block writes its partial and takes a ticket;
+// the last blocks wait for all tickets (wait_tickets) and fold in parallel,
+// each folded sum a pairwise tree (tree_rows) over strided segments.
 
 #pragma once
 
@@ -79,6 +84,58 @@ inline cudaError_t fold_cols(const float* in, long long rows, long long cols,
         scratch, used, cols, used, out, 1);
   }
   return cudaGetLastError();
+}
+
+// A wait that cannot end traps (a launch error) instead of hanging the
+// card: far more polls than any launch needs.
+constexpr unsigned MAX_POLLS = 1u << 26;
+
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+// Thread 0 of a folding block returns once all `total` blocks have taken
+// their tickets of `counter`.
+__device__ __forceinline__ void wait_tickets(const int* counter, int total) {
+  if (threadIdx.x == 0)
+    for (unsigned i = 0; ld_acquire(counter) < total; ++i)
+      if (i == MAX_POLLS) __trap();
+}
+
+// Pairwise tree over `count` rows of `width` floats at `buf` (row k at
+// buf + k * width): row 0 ends up with ((r0 + r1) + (r2 + r3)) + ...; the
+// calling thread adds COLS columns from col0 + p * stride of row k, for
+// each of PARTS parts p. Every thread of the block calls it (it
+// synchronises).
+template <int COLS, int PARTS>
+__device__ __forceinline__ void tree_rows(float* buf, int width, int count,
+                                          int k, int col0, int stride,
+                                          bool mine) {
+  for (int st = 1; st < count; st *= 2) {
+    if (mine && k % (2 * st) == 0 && k + st < count) {
+      float* to = buf + k * width + col0;
+      const float* from = buf + (k + st) * width + col0;
+      float a[PARTS][COLS], b[PARTS][COLS];
+#pragma unroll
+      for (int p = 0; p < PARTS; ++p)
+#pragma unroll
+        for (int i = 0; i < COLS; ++i) {
+          a[p][i] = to[p * stride + i];
+          b[p][i] = from[p * stride + i];
+        }
+#pragma unroll
+      for (int p = 0; p < PARTS; ++p)
+#pragma unroll
+        for (int i = 0; i < COLS; ++i)
+          to[p * stride + i] = __fadd_rn(a[p][i], b[p][i]);
+    }
+    __syncthreads();
+  }
 }
 
 }  // namespace fold

@@ -83,7 +83,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "fold.cuh"
+
 namespace {
+
+using fold::MAX_POLLS;
+using fold::tree_rows;
+using fold::wait_tickets;
 
 // threads that own channel vectors (a reduction block adds one producer
 // warp), the reductions' ring stages, row sweeps of each tensor per stage
@@ -189,10 +195,6 @@ __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
                : "memory");
 }
 
-// A wait that cannot end traps (a launch error) instead of hanging the
-// card: far more polls than any launch needs.
-constexpr unsigned MAX_POLLS = 1u << 26;
-
 // returns once the barrier's phase of parity `parity` has completed
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   for (unsigned i = 0;; ++i) {
@@ -222,23 +224,6 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       : "memory");
 }
 
-__device__ __forceinline__ int ld_acquire(const int* p) {
-  int v;
-  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n"
-               : "=r"(v)
-               : "l"(p)
-               : "memory");
-  return v;
-}
-
-// Thread 0 of a folding block returns once all `total` blocks have taken
-// their tickets of `counter`.
-__device__ __forceinline__ void wait_tickets(const int* counter, int total) {
-  if (threadIdx.x == 0)
-    for (unsigned i = 0; ld_acquire(counter) < total; ++i)
-      if (i == MAX_POLLS) __trap();
-}
-
 // One row of a reduction: a0 += g * xhat, a1 += g per channel (BWD), else
 // a0 += x, a1 += x^2.
 template <bool BWD, int V>
@@ -255,37 +240,6 @@ __device__ __forceinline__ void reduce_row(const float* xv, const float* gv,
       a0[j] = __fadd_rn(a0[j], xv[j]);
       a1[j] = __fadd_rn(a1[j], __fmul_rn(xv[j], xv[j]));
     }
-  }
-}
-
-// Pairwise tree over `count` rows of `width` floats at `buf` (row k at
-// buf + k * width): row 0 ends up with ((r0 + r1) + (r2 + r3)) + ...; the
-// calling thread adds COLS columns from col0 + p * stride of row k, for
-// each of PARTS parts p. Every thread of the block calls it (it
-// synchronises).
-template <int COLS, int PARTS>
-__device__ __forceinline__ void tree_rows(float* buf, int width, int count,
-                                          int k, int col0, int stride,
-                                          bool mine) {
-  for (int st = 1; st < count; st *= 2) {
-    if (mine && k % (2 * st) == 0 && k + st < count) {
-      float* to = buf + k * width + col0;
-      const float* from = buf + (k + st) * width + col0;
-      float a[PARTS][COLS], b[PARTS][COLS];
-#pragma unroll
-      for (int p = 0; p < PARTS; ++p)
-#pragma unroll
-        for (int i = 0; i < COLS; ++i) {
-          a[p][i] = to[p * stride + i];
-          b[p][i] = from[p * stride + i];
-        }
-#pragma unroll
-      for (int p = 0; p < PARTS; ++p)
-#pragma unroll
-        for (int i = 0; i < COLS; ++i)
-          to[p * stride + i] = __fadd_rn(a[p][i], b[p][i]);
-    }
-    __syncthreads();
   }
 }
 

@@ -75,15 +75,39 @@
 // kernels/layout.py mirrors the plan (mxu_probe_tile) and the library
 // loader compares the two.
 //
-// slab_build keeps its first design: its block's rows of the slab stay in
-// shared memory (rows per block chosen so that one wave of blocks covers
-// the plane). Each rep converts its rows' first cs columns into registers,
-// waits, stores them shifted by one row into each of the `copies` column
-// blocks, and waits. A block shifts rows only within its own rows, so its
-// first row is never written. That gives the TPU kernel's exact result: the
-// slab is a fixed point, since bf16(0.25 * 1.0001) = 0.25 (the bf16 spacing
-// at 0.25 is 2^-9), so the row a block's first row would receive from the
-// block above holds the value it already has.
+// Design of slab_build. The shift only ever moves column block 0 of row r
+// into row r + 1 of each block, so the data a lane needs is private to it:
+//   - A block holds its slab rows in shared memory (block b the rows
+//     [b ps / B, (b + 1) ps / B); B = SMs, fewer where the strips would be
+//     shorter than BUILD_MIN_STRIP rows, more where a block's rows do not
+//     fit or would make strips longer than 4 BUILD_ROWS), split evenly
+//     into BUILD_STRIPS strips. A row's cs / 8 column vectors are split
+//     into segments of BUILD_SEG (128 bytes); one warp per (strip,
+//     segment) unit (four warps at cs = 64, eight at cs = 128).
+//   - In a unit, lane (q, i) (quarter-warp q, lane i of it) owns column
+//     vector i of the segment over the strip's rows first + q + 4 e (e <
+//     BUILD_ROWS), so each 16-byte access of a quarter-warp is one 128-byte
+//     row segment, without bank conflicts. A build is straight-line code:
+//     the lane loads all its rows of block 0 into registers, a __syncwarp
+//     (other lanes of the warp read the rows it is about to write), then it
+//     stores each row's norm one row down into every copy (the copies
+//     unrolled for the probe's 1, 3 and 9), and a second __syncwarp (the
+//     next build reads rows that other lanes wrote). No other warp touches
+//     the unit's addresses, so a build needs no block-wide barrier: the rep
+//     loop has none. Measured alternatives (PERF.md §6): a bottom-up
+//     walk in steps of 8 rows with the next step's loads in flight, and
+//     quarters owning consecutive rows with the one value that crosses
+//     quarters passed by __shfl_up_sync (no __syncwarp at all), both ran
+//     slower; a block must stay at 256 threads or fewer, or the register
+//     cap spills the loop.
+//   - A strip's first row is never written, and its last row's norm is not
+//     stored: that row belongs to the next strip, and it keeps the value
+//     it holds. That gives the TPU kernel's exact result: the slab is a
+//     fixed point, since bf16(0.25 * 1.0001) = 0.25 (the bf16 spacing at
+//     0.25 is 2^-9), so the first row of a strip holds the value it would
+//     receive from the strip above. The launch leaves out one row's stores
+//     per strip, 528 of 10976 rows at ps 10976 (4.8%).
+//   - o: the lane that holds row 0, vector 0 adds norm[0, 0] each build.
 //
 // Exactness. Every product is exact (0.5 * 0.5 in bf16), and an f32 sum
 // stays exact while each partial is a multiple of the f32 spacing at its
@@ -123,8 +147,17 @@ constexpr int CHUNK_K = 64;           // depth of each operand's chunk
 constexpr int DOT_ROWS = 64 * WG;     // plane rows of a mxu_dot item
 constexpr int RDOT_CHUNK = 256;       // plane rows of a mxu_rdot item
 
-constexpr int BUILD_THREADS = 256;
-constexpr int BUILD_VECS = 8;  // 16-byte vectors of norm per thread, at most
+// slab_build: strips per block, 16-byte vectors of a segment (a
+// quarter-warp's 128 bytes of one row), rows of each lane at most (a strip
+// has at most 4 BUILD_ROWS rows), the rows a strip gets at least where the
+// plane allows, warps per block at most (mirrored by kernels/layout.py);
+// shared memory a block may use
+constexpr int BUILD_STRIPS = 4;
+constexpr int BUILD_SEG = 8;
+constexpr int BUILD_ROWS = 8;
+constexpr int BUILD_MIN_STRIP = 16;
+constexpr int BUILD_MAX_WARPS = 8;
+constexpr int SMEM_MAX = 232448;
 
 // The N of each wgmma: the widest of 192, 128 and 64 that divides n.
 __host__ __device__ int tile_n(int n) {
@@ -304,65 +337,124 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
-__global__ void __launch_bounds__(BUILD_THREADS)
-    slab_build_kernel(int cs, int copies, int ps, int reps, int rows_per,
+// The launch plan of slab_build (kernels/layout.py build_plan)
+struct BuildPlan {
+  int blocks;  // B
+  int warps;   // warps per block
+  int segs;    // segments of a row
+  int rows;    // rows of a block, at most
+};
+
+long long ceil_div(long long a, long long b) { return (a + b - 1) / b; }
+
+// blocks 0 where a slab row does not fit in a block's shared memory
+BuildPlan build_plan(int cs, int copies, int ps, int sms) {
+  BuildPlan p{0, 0, 0, 0};
+  if (cs <= 0 || cs % 8 || copies <= 0 || ps <= 0 || sms <= 0) return p;
+  const long long fit = SMEM_MAX / (2LL * copies * cs);
+  if (fit < 1) return p;
+  p.segs = (int)ceil_div(cs / 8, BUILD_SEG);
+  p.warps = BUILD_STRIPS * p.segs < BUILD_MAX_WARPS ? BUILD_STRIPS * p.segs
+                                                    : BUILD_MAX_WARPS;
+  long long b = ceil_div(ps, BUILD_STRIPS * BUILD_MIN_STRIP);
+  if (b > sms) b = sms;
+  const long long longest = ceil_div(ps, BUILD_STRIPS * 4 * BUILD_ROWS);
+  if (b < longest) b = longest;
+  if (b < ceil_div(ps, fit)) b = ceil_div(ps, fit);
+  p.blocks = (int)b;
+  p.rows = (int)ceil_div(ps, b);
+  return p;
+}
+
+// bf16(f32(v) * 1.0001) of the two bf16 in w
+__device__ __forceinline__ uint32_t norm2(uint32_t w) {
+  const float lo = __uint_as_float(w << 16);
+  const float hi = __uint_as_float(w & 0xffff0000u);
+  const __nv_bfloat162 r =
+      __floats2bfloat162_rn(__fmul_rn(lo, 1.0001f), __fmul_rn(hi, 1.0001f));
+  return *reinterpret_cast<const uint32_t*>(&r);
+}
+
+__device__ __forceinline__ uint4 norm8(uint4 v) {
+  return make_uint4(norm2(v.x), norm2(v.y), norm2(v.z), norm2(v.w));
+}
+
+// COPIES: the copies, known at compile time for the probe's 1, 3 and 9
+// (their stores unrolled), 0 for any other count (a loop)
+template <int COPIES>
+__global__ void __launch_bounds__(32 * BUILD_MAX_WARPS)
+    slab_build_kernel(int cs, int copies_rt, int ps, int reps, BuildPlan pl,
                       float* __restrict__ o,
                       __nv_bfloat16* __restrict__ slab_out) {
+  const int copies = COPIES > 0 ? COPIES : copies_rt;
   extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* s = reinterpret_cast<__nv_bfloat16*>(smem);
-  const int W = copies * cs;  // slab width
-  const int wv = W / 8;       // 16-byte vectors per slab row
-  const int cv = cs / 8;      // 16-byte vectors per row of the plane
-  const int row0 = blockIdx.x * rows_per;
-  const int rows = min(rows_per, ps - row0);
-  const int items = rows * cv;
-  uint4* sv = reinterpret_cast<uint4*>(s);
+  uint4* sv = reinterpret_cast<uint4*>(smem);
+  const int cv = cs / 8;        // 16-byte vectors of a row of the plane
+  const int wv = copies * cv;   // 16-byte vectors of a slab row
+  const int row0 = (int)((long long)blockIdx.x * ps / pl.blocks);
+  const int rows = (int)((long long)(blockIdx.x + 1) * ps / pl.blocks) - row0;
+  const int threads = 32 * pl.warps;
 
   {
-    __nv_bfloat162 q = __float2bfloat162_rn(0.25f);
-    uint32_t w = *reinterpret_cast<uint32_t*>(&q);
+    __nv_bfloat162 h = __float2bfloat162_rn(0.25f);
+    uint32_t w = *reinterpret_cast<uint32_t*>(&h);
     const uint4 v = make_uint4(w, w, w, w);
-    for (int i = threadIdx.x; i < rows * wv; i += BUILD_THREADS) sv[i] = v;
+    for (int i = threadIdx.x; i < rows * wv; i += threads) sv[i] = v;
   }
   __syncthreads();
 
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int q = lane / 8, i = lane % 8;
   float acc = 0.0f;
-  const bool first = blockIdx.x == 0 && threadIdx.x == 0;
-  for (int r = 0; r < reps; ++r) {
-    uint4 norm[BUILD_VECS];
+  bool owner = false;  // this lane holds row 0, vector 0 of the slab
+  for (int u = warp; u < BUILD_STRIPS * pl.segs; u += pl.warps) {
+    const int seg = u % pl.segs, strip = u / pl.segs;
+    const int k = seg * BUILD_SEG + i;
+    const int s0 = strip * rows / BUILD_STRIPS;
+    const int s1 = (strip + 1) * rows / BUILD_STRIPS;
+    // the lane's rows s0 + q + 4 e: which it loads, and which it stores
+    // one row down (not the strip's last)
+    bool ld[BUILD_ROWS], st[BUILD_ROWS];
+    uint4* col = sv + (s0 + q) * wv + k;
 #pragma unroll
-    for (int j = 0; j < BUILD_VECS; ++j) {
-      const int i = threadIdx.x + j * BUILD_THREADS;
-      if (i < items) {
-        const uint4 raw = sv[(i / cv) * wv + i % cv];
-        const __nv_bfloat16* in = reinterpret_cast<const __nv_bfloat16*>(&raw);
-        __nv_bfloat16* out = reinterpret_cast<__nv_bfloat16*>(&norm[j]);
-#pragma unroll
-        for (int e = 0; e < 8; ++e)
-          out[e] = __float2bfloat16(__fmul_rn(__bfloat162float(in[e]),
-                                              1.0001f));
-      }
+    for (int e = 0; e < BUILD_ROWS; ++e) {
+      const int r = s0 + q + 4 * e;
+      ld[e] = k < cv && r < s1;
+      st[e] = ld[e] && r + 1 < s1;
     }
-    if (first) acc += __bfloat162float(
-        reinterpret_cast<const __nv_bfloat16*>(&norm[0])[0]);
-    __syncthreads();
+    const bool mine = k == 0 && row0 + s0 + q == 0;
+    for (int t = 0; t < reps; ++t) {
+      uint4 v[BUILD_ROWS];
 #pragma unroll
-    for (int j = 0; j < BUILD_VECS; ++j) {
-      const int i = threadIdx.x + j * BUILD_THREADS;
-      const int row = i / cv;
-      if (i < items && row + 1 < rows) {
-        uint4* dst = sv + (row + 1) * wv + i % cv;
-        for (int c = 0; c < copies; ++c) dst[c * cv] = norm[j];
+      for (int e = 0; e < BUILD_ROWS; ++e)
+        v[e] = ld[e] ? col[4 * e * wv] : make_uint4(0u, 0u, 0u, 0u);
+      // every lane's loads before any lane's stores
+      __syncwarp();
+#pragma unroll
+      for (int e = 0; e < BUILD_ROWS; ++e) {
+        const uint4 nv = norm8(v[e]);
+        uint4* dst = col + (4 * e + 1) * wv;
+        if constexpr (COPIES > 0) {
+#pragma unroll
+          for (int c = 0; c < COPIES; ++c)
+            if (st[e]) dst[c * cv] = nv;
+        } else {
+          if (st[e])
+            for (int c = 0; c < copies; ++c) dst[c * cv] = nv;
+        }
+        if (e == 0 && mine) acc = __fadd_rn(acc, __uint_as_float(nv.x << 16));
       }
+      // every lane's stores before the next build's loads
+      __syncwarp();
     }
-    __syncthreads();
+    owner = owner || (mine && reps > 0);
   }
 
-  if (first) o[0] = acc;
+  if (owner) o[0] = acc;
   if (slab_out != nullptr) {
+    __syncthreads();
     uint4* dst = reinterpret_cast<uint4*>(slab_out) + (long long)row0 * wv;
-    for (int i = threadIdx.x; i < rows * wv; i += BUILD_THREADS)
-      dst[i] = sv[i];
+    for (int j = threadIdx.x; j < rows * wv; j += threads) dst[j] = sv[j];
   }
 }
 
@@ -413,16 +505,41 @@ int launch_rdot(int m, int n, int ps, int reps, long long items, int blocks,
   return (int)cudaGetLastError();
 }
 
+template <int COPIES>
+int launch_build(int cs, int copies, int ps, int reps, const BuildPlan& p,
+                 float* o, void* slab_out, void* stream) {
+  const int smem = p.rows * copies * cs * 2;
+  const cudaError_t err = cudaFuncSetAttribute(
+      slab_build_kernel<COPIES>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return (int)err;
+  slab_build_kernel<COPIES><<<p.blocks, 32 * p.warps, smem,
+                              static_cast<cudaStream_t>(stream)>>>(
+      cs, copies, ps, reps, p, o, static_cast<__nv_bfloat16*>(slab_out));
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// The dot kernels' plan, mirrored by kernels/layout.py: what 0 blocks per
-// SM, 1 plane rows of a mxu_dot item, 2 plane rows of a mxu_rdot chunk, 3
-// the wgmma N for n, 4 mxu_dot's items (a = k), 5 mxu_rdot's items (a =
-// m), 6 mxu_dot's blocks and 7 mxu_rdot's blocks on `sms` SMs; -1 for any
-// other `what`.
+// The probe kernels' plan, mirrored by kernels/layout.py: what 0 blocks
+// per SM, 1 plane rows of a mxu_dot item, 2 plane rows of a mxu_rdot
+// chunk, 3 the wgmma N for n, 4 mxu_dot's items (a = k), 5 mxu_rdot's
+// items (a = m), 6 mxu_dot's blocks and 7 mxu_rdot's blocks on `sms` SMs;
+// slab_build's 8 BUILD_STRIPS, 9 BUILD_SEG, 10 BUILD_ROWS, 11
+// BUILD_MIN_STRIP, and for (a = cs, n = copies, ps) on `sms` SMs 12
+// blocks, 13 warps per block, 14 segments, 15 rows of a block at most;
+// -1 for any other `what`.
 extern "C" int mxu_probe_tile(int what, int a, int n, int ps, int reps,
                               int sms) {
   switch (what) {
+    case 8: return BUILD_STRIPS;
+    case 9: return BUILD_SEG;
+    case 10: return BUILD_ROWS;
+    case 11: return BUILD_MIN_STRIP;
+    case 12: return build_plan(a, n, ps, sms).blocks;
+    case 13: return build_plan(a, n, ps, sms).warps;
+    case 14: return build_plan(a, n, ps, sms).segs;
+    case 15: return build_plan(a, n, ps, sms).rows;
     case 0: return BLOCKS_PER_SM;
     case 1: return DOT_ROWS;
     case 2: return RDOT_CHUNK;
@@ -467,34 +584,17 @@ extern "C" int mxu_rdot(int m, int n, int ps, int reps, float* o,
   }
 }
 
-// Rows of the slab each block of slab_build holds, or 0 if a row does not
-// fit in shared memory or cs is not a multiple of 8.
-extern "C" int slab_build_rows(int cs, int copies, int ps) {
-  if (cs <= 0 || cs % 8 || copies <= 0 || ps <= 0) return 0;
-  const long long row_bytes = (long long)copies * cs * 2;
-  const long long smem_max = 232448;
-  int rows = (ps + sm_count() - 1) / sm_count();
-  const long long fit = smem_max / row_bytes;
-  const int per_thread = BUILD_VECS * BUILD_THREADS / (cs / 8);
-  if (rows > fit) rows = (int)fit;
-  if (rows > per_thread) rows = per_thread;
-  return rows < 1 ? 0 : rows;
-}
-
 // o: (1, 1) f32, zeroed by the caller. slab_out: (ps, copies * cs) bf16 or
 // null (the timed launch).
 extern "C" int slab_build(int cs, int copies, int ps, int reps, float* o,
                           void* slab_out, void* stream) {
-  const int rows_per = slab_build_rows(cs, copies, ps);
-  if (rows_per == 0 || reps < 0) return (int)cudaErrorInvalidValue;
-  const int smem = rows_per * copies * cs * 2;
-  cudaError_t err = cudaFuncSetAttribute(
-      slab_build_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const int blocks = (ps + rows_per - 1) / rows_per;
-  slab_build_kernel<<<blocks, BUILD_THREADS, smem,
-                      static_cast<cudaStream_t>(stream)>>>(
-      cs, copies, ps, reps, rows_per, o,
-      static_cast<__nv_bfloat16*>(slab_out));
-  return (int)cudaGetLastError();
+  const BuildPlan p = build_plan(cs, copies, ps, sm_count());
+  if (p.blocks == 0 || reps < 0) return (int)cudaErrorInvalidValue;
+  switch (copies) {
+    case 1: return launch_build<1>(cs, 1, ps, reps, p, o, slab_out, stream);
+    case 3: return launch_build<3>(cs, 3, ps, reps, p, o, slab_out, stream);
+    case 9: return launch_build<9>(cs, 9, ps, reps, p, o, slab_out, stream);
+    default:
+      return launch_build<0>(cs, copies, ps, reps, p, o, slab_out, stream);
+  }
 }

@@ -108,9 +108,9 @@ KERNELS = {
     # kernel B. x, ab, c, X, Y, Z, y, stream
     "max_pool_buf_fwd": ("max_pool_buf_fwd", [_P, _P, _I, _I, _I, _I, _P,
                                               _P]),
-    # kernel E. x, ab, out, cot, c, X, Y, Z, dx, dab, ws, stream
+    # kernel E. x, ab, out, cot, c, X, Y, Z, sms, dx, dab, ws, stream
     "max_pool_buf_bwd": ("max_pool_buf_bwd", [_P, _P, _P, _P, _I, _I, _I,
-                                              _I, _P, _P, _P, _P]),
+                                              _I, _I, _P, _P, _P, _P]),
     # GroupNorm. x, dtype, n, s, c, groups, eps, sms, partial, counter,
     # mean, inv, stream
     "gn_stats": ("group_norm", [_P, _I, _I, _L, _I, _I, _F, _I, _P, _P, _P,
@@ -147,15 +147,13 @@ HELPERS = {
     "conv3x3x3_dx_tile": ("conv3x3x3_dx", [_I, _I, _I, _I, _I, _I]),
     # what, Z
     "conv3x3x3_wgrad_tile": ("conv3x3x3_wgrad", [_I, _I]),
-    # c, X, Y, Z
-    "max_pool_buf_bwd_ws": ("max_pool_buf_bwd", [_I, _I, _I, _I]),
+    # kernel E's plan that kernels/layout.py mirrors. what, c, X, Y, Z, sms
+    "max_pool_buf_bwd_tile": ("max_pool_buf_bwd", [_I, _I, _I, _I, _I, _I]),
     # the GroupNorm kernels' plan that kernels/layout.py mirrors. what, n,
     # s, c, groups, dtype, sms
     "gn_tile": ("group_norm", [_I, _I, _L, _I, _I, _I, _I]),
-    # cs, copies, ps -> slab rows per block of slab_build (0: too wide)
-    "slab_build_rows": ("mxu_probe", [_I, _I, _I]),
-    # the dot kernels' plan that kernels/layout.py mirrors. what, k or m,
-    # n, ps, reps, sms
+    # the probe kernels' plan that kernels/layout.py mirrors. what, k (m,
+    # cs), n (copies), ps, reps, sms
     "mxu_probe_tile": ("mxu_probe", [_I, _I, _I, _I, _I, _I]),
 }
 
@@ -256,6 +254,13 @@ GN_PLAN_SLABS = tuple(
 ) + ((1, 49 ** 3, 128, 32, 1), (2, 9 * 7 * 5, 36, 12, 0), (3, 5, 2048, 1, 0))
 
 
+# (c, X, Y, Z) of kernel E's plans compared at load: the flagship's three
+# pools, odd extents, channel tails and the widest rows taken
+POOL_PLAN_SHAPES = ((64, 96, 96, 96), (128, 49, 49, 49), (256, 25, 25, 25),
+                    (12, 9, 8, 11), (10, 7, 9, 5), (36, 3, 1, 2),
+                    (2048, 5, 4, 3))
+
+
 def _check_tiles(name: str, lib: ctypes.CDLL) -> None:
     """Raise if a library's exported tile constants differ from the ones
     that :mod:`.layout` packs and plans with."""
@@ -293,10 +298,25 @@ def _check_tiles(name: str, lib: ctypes.CDLL) -> None:
             want[(6, z)] = layout.wgrad_stages(z)
             want[(7, z)] = layout.wgrad_runs(z)
         got = {k: lib.conv3x3x3_wgrad_tile(*k) for k in want}
+    elif name == "max_pool_buf_bwd":
+        want = {(0, 1, 1, 1, 1, 1): layout.POOL_BWD_THREADS,
+                (1, 1, 1, 1, 1, 1): layout.POOL_BWD_BLOCKS_PER_SM,
+                (2, 1, 1, 1, 1, 1): layout.POOL_BWD_FOLD_COLS,
+                (3, 1, 1, 1, 1, 1): layout.POOL_BWD_FOLD_BATCH}
+        for k in POOL_PLAN_SHAPES:
+            for sms in (132, 7):
+                for what, v in zip((4, 5, 6), layout.pool_bwd_plan(*k, sms)):
+                    want[(what, *k, sms)] = v
+                want[(7, *k, sms)] = layout.pool_bwd_workspace(*k, sms)
+        got = {k: lib.max_pool_buf_bwd_tile(*k) for k in want}
     elif name == "mxu_probe":
         want = {(0, 0, 64, 1, 1, 1): layout.PROBE_BLOCKS_PER_SM,
                 (1, 0, 64, 1, 1, 1): layout.PROBE_DOT_ROWS,
-                (2, 0, 64, 1, 1, 1): layout.PROBE_RDOT_CHUNK}
+                (2, 0, 64, 1, 1, 1): layout.PROBE_RDOT_CHUNK,
+                (8, 0, 64, 1, 1, 1): layout.PROBE_BUILD_STRIPS,
+                (9, 0, 64, 1, 1, 1): layout.PROBE_BUILD_SEG,
+                (10, 0, 64, 1, 1, 1): layout.PROBE_BUILD_ROWS,
+                (11, 0, 64, 1, 1, 1): layout.PROBE_BUILD_MIN_STRIP}
         want.update({(3, 0, n, 1, 1, 1): layout.probe_tile_n(n)
                      for n in (64, 128, 192, 256, 320, 384, 576)})
         # the probe's shapes and small ones, on an H100's SMs and on few
@@ -310,6 +330,14 @@ def _check_tiles(name: str, lib: ctypes.CDLL) -> None:
                     blocks, items, _ = layout.rdot_plan(a, n, ps, reps, sms)
                     want[(5, a, n, ps, reps, sms)] = items
                     want[(7, a, n, ps, reps, sms)] = blocks
+                # slab_build: the probe's combinations, a narrow plane and
+                # a row too wide for shared memory
+                for cs, copies in ((64, 1), (64, 3), (64, 9), (128, 1),
+                                   (128, 3), (128, 9), (8, 2), (2048, 1),
+                                   (8192, 16)):
+                    for what, v in zip((12, 13, 14, 15),
+                                       layout.build_plan(cs, copies, ps, sms)):
+                        want[(what, cs, copies, ps, reps, sms)] = v
         got = {k: lib.mxu_probe_tile(*k) for k in want}
     elif name == "group_norm":
         want = {(0, 1, 1, 1, 1, 0, 1): layout.GN_THREADS,
@@ -406,6 +434,10 @@ def _check_affine(ab: torch.Tensor, c: int, device, what: str) -> None:
     if tuple(ab.shape) != (2, c) or not ab.is_contiguous():
         raise ValueError(f"{what} must be a contiguous (2, {c}) tensor, "
                          f"got {tuple(ab.shape)}")
+
+
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _raise_on(err: int, name: str) -> None:
@@ -653,16 +685,22 @@ def max_pool_buf_bwd(
                              f"{tuple(t.shape)} on {t.device}")
     if ab is not None:
         _check_affine(ab, c, buf.device, "pool affine")
-    dbuf = torch.zeros_like(buf)
-    dab = None if ab is None else torch.zeros(
+    if c > 8 * layout.POOL_BWD_THREADS:
+        raise ValueError(f"{c} channels exceed kernel E's "
+                         f"{8 * layout.POOL_BWD_THREADS}")
+    sms = _sm_count(buf.device)
+    # kernel E writes every element of dbuf and dab
+    dbuf = torch.empty_like(buf)
+    dab = None if ab is None else torch.empty(
         (2, c), dtype=torch.float32, device=buf.device)
-    ws = None if ab is None else _workspace(
-        "max_pool_buf_bwd_ws", c, x, y, z, device=buf.device)
+    ws = None if ab is None else torch.empty(
+        layout.pool_bwd_workspace(c, x, y, z, sms), dtype=torch.float32,
+        device=buf.device)
     fn = _kernel("max_pool_buf_bwd")
     with torch.cuda.device(buf.device):
         err = fn(
             buf.data_ptr(), None if ab is None else ab.data_ptr(),
-            out.data_ptr(), cot.data_ptr(), c, x, y, z, dbuf.data_ptr(),
+            out.data_ptr(), cot.data_ptr(), c, x, y, z, sms, dbuf.data_ptr(),
             None if dab is None else dab.data_ptr(),
             None if ws is None else ws.data_ptr(),
             torch.cuda.current_stream(buf.device).cuda_stream,
@@ -722,10 +760,6 @@ def _gn_workspace(kernel: str, n: int, s: int, c: int, groups: int,
     floats, tickets = layout.gn_workspace(kernel, n, s, c, groups, code, sms)
     return (torch.empty(floats, dtype=torch.float32, device=device),
             torch.zeros(tickets, dtype=torch.int32, device=device))
-
-
-def _sm_count(device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def gn_stats(x: torch.Tensor, num_groups: int,
@@ -889,7 +923,7 @@ def slab_build(cs: int, copies: int, ps: int, reps: int, device="cuda",
     memory), as (o, slab). cs a multiple of 8."""
     dev = _probe_device("slab_build", device, reps, cs=(cs, 8),
                         copies=(copies, 1), ps=(ps, 1))
-    if _lib("mxu_probe").slab_build_rows(cs, copies, ps) == 0:
+    if layout.build_plan(cs, copies, ps, _sm_count(dev))[0] == 0:
         raise ValueError(f"slab_build: a slab row of {copies} x {cs} bf16 "
                          "does not fit in a block's shared memory")
     o = torch.zeros((1, 1), dtype=torch.float32, device=dev)

@@ -1,11 +1,12 @@
 """Host-side layout of kernels A (``csrc/conv3x3x3_fwd.cu``), C
 (``csrc/conv3x3x3_dx.cu``) and D (``csrc/conv3x3x3_wgrad.cu``): their tile
 constants, A's and C's weight packing and the three kernels' launch plans;
-the plan of the probe's dot kernels (``csrc/mxu_probe.cu``) and of the
-four GroupNorm kernels (``csrc/group_norm.cu``); in plain Python so that
-the CPU tests reach them. Each constant mirrors one that its library
-exports (``conv3x3x3_fwd_tile``, ``conv3x3x3_dx_tile``,
-``conv3x3x3_wgrad_tile``, ``mxu_probe_tile``, ``gn_tile``); the library
+the plan of kernel E (``csrc/max_pool_buf_bwd.cu``), of the probe's
+kernels (``csrc/mxu_probe.cu``) and of the four GroupNorm kernels
+(``csrc/group_norm.cu``); in plain Python so that the CPU tests reach
+them. Each constant mirrors one that its library exports
+(``conv3x3x3_fwd_tile``, ``conv3x3x3_dx_tile``, ``conv3x3x3_wgrad_tile``,
+``max_pool_buf_bwd_tile``, ``mxu_probe_tile``, ``gn_tile``); the library
 loader in :mod:`unetsulc_tpu_torch.kernels` compares them when it loads the
 library and raises on a mismatch.
 
@@ -357,7 +358,56 @@ def wgrad_blocks(cin: int, cout: int, X: int, Y: int, Z: int
 
 
 # ---------------------------------------------------------------------------
-# the probe's dot kernels, mxu_dot and mxu_rdot
+# kernel E, the pool backward
+# ---------------------------------------------------------------------------
+
+# threads per block, blocks per SM, partial columns of a fold unit, and
+# partials a folding thread loads at once
+POOL_BWD_THREADS = 256
+POOL_BWD_BLOCKS_PER_SM = 2
+POOL_BWD_FOLD_COLS = 8
+POOL_BWD_FOLD_BATCH = 4
+
+
+def pool_bwd_voxels(X: int, Y: int, Z: int) -> Tuple[int, int, int]:
+    """Interior extents of the pooled output of an (X, Y, Z) interior."""
+    return X // 2 + 1, Y // 2 + 1, Z // 2 + 1
+
+
+def pool_bwd_plan(c: int, X: int, Y: int, Z: int, sms: int
+                  ) -> Tuple[int, int, int]:
+    """(blocks B, voxel lanes R, folding blocks F) of a kernel E launch on
+    ``sms`` SMs: B = min(V, sms * POOL_BWD_BLOCKS_PER_SM) over the V pooled
+    voxels, block b owning voxels ``block_items(V, B, b)`` in (x, y, z)
+    order; thread t owns channel vector t % (C / 8) and lane t // (C / 8) <
+    R, lane r walking the block's voxels r, r + R, ...; the last F = min(
+    ceil(2 C / 8), max(1, min(B, sms) // 2)) blocks to take a ticket fold
+    dab's units f, f + F, ... (unit u: columns [8 u, 8 u + 8) of the (B,
+    2 C) partials)."""
+    ox, oy, oz = pool_bwd_voxels(X, Y, Z)
+    blocks = min(ox * oy * oz, sms * POOL_BWD_BLOCKS_PER_SM)
+    units = -(-2 * c // POOL_BWD_FOLD_COLS)
+    folders = min(units, max(1, min(blocks, sms) // 2))
+    return blocks, POOL_BWD_THREADS // -(-c // 8), folders
+
+
+def pool_bwd_workspace(c: int, X: int, Y: int, Z: int, sms: int) -> int:
+    """f32 workspace of a kernel E launch with an affine: the (B, 2 C)
+    partials, then one int, the ticket counter."""
+    return pool_bwd_plan(c, X, Y, Z, sms)[0] * 2 * c + 1
+
+
+def pool_bwd_owned(o: int, extent: int) -> range:
+    """The padded coordinates along one axis whose dx the pooled index o
+    writes: its window [2 o, 2 o + 2), and for the last index everything up
+    to the ring's far plane (the plane no window covers when the extent is
+    odd)."""
+    last = o == extent // 2
+    return range(2 * o, extent + 2 if last else 2 * o + 2)
+
+
+# ---------------------------------------------------------------------------
+# the probe: the dot kernels mxu_dot and mxu_rdot, and slab_build
 # ---------------------------------------------------------------------------
 
 # blocks per SM (two warpgroups each), plane rows of a mxu_dot item (64 per
@@ -429,6 +479,83 @@ def rdot_item(i: int, m: int, n: int, ps: int, reps: int
     split = min(r0 + 16 * ((-(-(r1 - r0) // 16) + 1) // 2), r1)
     return (t, range(mt * 64, mt * 64 + 64), range(ct * nt, (ct + 1) * nt),
             (range(r0, split), range(split, r1)), rest % reps)
+
+
+# the probe's slab build: strips per block, 16-byte vectors of a segment (a
+# quarter-warp's 128 bytes of one row), rows of each lane at most (a strip
+# has at most 4 PROBE_BUILD_ROWS rows), the rows a strip gets at least
+# where the plane allows, and warps per block at most
+PROBE_BUILD_STRIPS = 4
+PROBE_BUILD_SEG = 8
+PROBE_BUILD_ROWS = 8
+PROBE_BUILD_MIN_STRIP = 16
+PROBE_BUILD_MAX_WARPS = 8
+
+
+def build_plan(cs: int, copies: int, ps: int, sms: int
+               ) -> Tuple[int, int, int, int]:
+    """(blocks, warps per block, segments, most rows of a block) of a
+    slab_build launch on ``sms`` SMs, or (0, 0, 0, 0) where one slab row
+    does not fit in a block's shared memory. Block b holds slab rows
+    ``block_items(ps, blocks, b)``, split evenly into PROBE_BUILD_STRIPS
+    strips; a row's cs / 8 vectors are split into segments of
+    PROBE_BUILD_SEG; warp w of a block takes units w, w + warps, ... (unit
+    u: segment u % segs of strip u // segs). At most ``sms`` blocks, fewer
+    where the strips would get fewer than PROBE_BUILD_MIN_STRIP rows, more
+    where they would get more than 4 PROBE_BUILD_ROWS or a block's rows do
+    not fit."""
+    fit = SMEM_LIMIT // (2 * copies * cs)
+    if fit < 1:
+        return 0, 0, 0, 0
+    segs = -(-(cs // 8) // PROBE_BUILD_SEG)
+    warps = min(PROBE_BUILD_STRIPS * segs, PROBE_BUILD_MAX_WARPS)
+    blocks = max(1, min(sms, -(-ps // (PROBE_BUILD_STRIPS
+                                       * PROBE_BUILD_MIN_STRIP))),
+                 -(-ps // (PROBE_BUILD_STRIPS * 4 * PROBE_BUILD_ROWS)),
+                 -(-ps // fit))
+    return blocks, warps, segs, -(-ps // blocks)
+
+
+def build_units(cs: int, copies: int, ps: int, sms: int
+                ) -> List[Tuple[int, int, range, range]]:
+    """(block, warp, its vectors of a row, its strip's slab rows) of every
+    unit of a slab_build launch; a warp walks its units in order."""
+    blocks, warps, segs, _ = build_plan(cs, copies, ps, sms)
+    out = []
+    for b in range(blocks):
+        rows = block_items(ps, blocks, b)
+        n = len(rows)
+        for u in range(PROBE_BUILD_STRIPS * segs):
+            seg, j = u % segs, u // segs
+            out.append((b, u % warps,
+                        range(seg * PROBE_BUILD_SEG,
+                              min((seg + 1) * PROBE_BUILD_SEG, cs // 8)),
+                        range(rows.start + j * n // PROBE_BUILD_STRIPS,
+                              rows.start + (j + 1) * n // PROBE_BUILD_STRIPS)))
+    return out
+
+
+def build_lane_rows(strip: range, q: int) -> List[int]:
+    """The strip's rows that lane (q, i) of a unit's warp holds: start + q
+    + 4 e for e < PROBE_BUILD_ROWS, within the strip."""
+    return [r for r in range(strip.start + q,
+                             strip.start + 4 * PROBE_BUILD_ROWS, 4)
+            if r < strip.stop]
+
+
+def build_schedule(strip: range, reps: int
+                   ) -> Iterator[Tuple[str, List[int]]]:
+    """A unit's shared-memory operations over ``reps`` builds, in program
+    order: per build ("load", rows), every lane's rows of segment 0's
+    columns into registers, a __syncwarp, then ("store", rows), each row's
+    norm one row down into each copy, but for the strip's last row, whose
+    norm would go to the next strip's first row: that row keeps its value
+    (the slab's fixed point, bf16(0.25 * 1.0001) = 0.25), and a second
+    __syncwarp."""
+    rows = sorted(r for q in range(4) for r in build_lane_rows(strip, q))
+    for _ in range(reps):
+        yield "load", rows
+        yield "store", rows
 
 
 # ---------------------------------------------------------------------------
