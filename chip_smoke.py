@@ -146,7 +146,30 @@ order (each phase aborts the script with a non-zero exit on failure):
    launches no backward kernel, and whose fine-tuned decoders sit above
    every pool), no plain version on a CUDA tensor, and the volumes used;
    seconds per epoch and voxels/s printed;
-22. prints the kernels' JSON line, the card line, and the final JSON line.
+22. data and fold parallelism on this one card: the data-parallel train
+   step (``make_mesh(data=2, devices=[cuda] * 2)``, ``shard_batch``,
+   ``make_train_step_dp``) of the flagship at batch 2 (bench.py's volume
+   and one from numpy seed 1) against the single-device step at batch 2
+   from the same state, two steps: bit-equal (each row runs the
+   single-device step's per-volume operations in its order), else the
+   differing parameter printed and loss rtol 1e-6, each parameter within
+   1e-3 max|p|; launches per step (counts zeroed just before) twice phase
+   9's per volume; no plain version on a CUDA tensor; ms/step and peak
+   memory of both (3 warm-up and 20 timed steps: the one-process
+   design's overhead, not a scaling figure); the dp eval step against the
+   single-device eval step; then phase 21's CV experiment again with
+   ``tpu.fold_parallel: 2`` (``run_experiment(..., devices=[cuda] * 2)``:
+   two fold threads on this card), every non-timing results key and the
+   launches in all equal to phase 21's, main()'s wall time beside it;
+   then phase 21's train phase in parts (fold 0, two epochs, host spans
+   handed to each train phase's ``_epoch_pass``): the prefetch thread's
+   batch making (within it the dataset's parts: loading the cached
+   points, augmentation, label ids, voxelization; the rest is the bucket
+   copy), pinning and upload, the main thread's waits, step dispatch and
+   end-of-phase fetch, the device's busy share under the profiler, and
+   the voxelizer alone on the same volumes, native against numpy
+   (bit-equal), ms per volume;
+23. prints the kernels' JSON line, the card line, and the final JSON line.
 
 It exits non-zero without a result when CUDA is not available. Scratch
 files go under ``build/chip_smoke/``.
@@ -1032,10 +1055,11 @@ def pool_bwd_into_nan(buf, aff, out, cot):
     return dx, dab
 
 
-def make_batch(dev):
+def make_batch(dev, seed=0):
     """bench.py:38-45's batch: numpy seed 0, 2% of the voxels occupied,
-    labels 0..62 there and -1 elsewhere."""
-    rng = np.random.default_rng(0)
+    labels 0..62 there and -1 elsewhere (another volume from another
+    ``seed``)."""
+    rng = np.random.default_rng(seed)
     inputs = (rng.random((1, *VOLUME, 1)) < 0.02).astype(np.float32)
     labels = np.where(inputs[..., 0] > 0,
                       rng.integers(0, CLASSES, (1, *VOLUME)), -1)
@@ -2627,7 +2651,9 @@ def phase_experiment(dev):
               f"{name}: the fused flagship launched a GroupNorm kernel")
         out[name] = check_experiment(root, name, results, log,
                                      params["n_cvinner"], schema, launched)
-        out[name]["wall_s"] = wall
+        out[name].update(wall_s=wall, results=results, params=params,
+                         main_launches={k: kernels.launch_counts[k]
+                                        for k in FUSED_KERNELS})
         print(f"  {name}: main() took {wall:.1f} s", flush=True)
         if name == "FlagshipTL":
             # fold 0 trains final_conv only (no backward kernel) until the
@@ -2643,6 +2669,347 @@ def phase_experiment(dev):
             check(results["fine_tunning_epoch"][:1] == [1],
                   f"fine_tunning_epoch {results['fine_tunning_epoch']}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# data and fold parallelism on one card, the CV train phase in parts
+# (phase 22)
+# ---------------------------------------------------------------------------
+
+# launches per dp train step at batch 2, data 2: phase 9's per-volume
+# counts twice
+DP_LAUNCHES = dict(conv3x3x3_fwd=26, max_pool_buf_fwd=6, conv3x3x3_dx=32,
+                   conv3x3x3_wgrad=32, max_pool_buf_bwd=6)
+# the dp step against the single-device step should be bit-equal (each row
+# runs the same per-volume operations in the same order); if it is not,
+# these bars hold and the differing parameter is printed
+DP_LOSS_RTOL, DP_PARAM_ATOL = 1e-6, 1e-3
+# results keys that hold wall times
+TIMING_KEYS = {"duration", "voxels_per_sec_train", "voxels_per_sec_val"}
+
+
+def hold_dp(single_out, dp_out, m_single, m_dp, what):
+    """The dp step's (loss, counts) and parameters against the single-device
+    step's: bit-equal, or the fallback bars with the first differing
+    parameter named. Returns whether they were bit-equal."""
+    (l1, c1), (l2, c2) = single_out, dp_out
+    check(torch.equal(c1, c2), f"{what}: confusion counts differ")
+    same = torch.equal(l1, l2)
+    diffs = []
+    for (n, p), q in zip(m_single.named_parameters(), m_dp.parameters()):
+        if not torch.equal(p, q):
+            d = (p - q).abs().max().item() / max(p.abs().max().item(), 1e-30)
+            diffs.append((n, d))
+    if same and not diffs:
+        print(f"  {what}: bit-equal to the single-device step (loss "
+              f"{l1.item():.6f}, counts, every parameter)", flush=True)
+        return True
+    rel = abs(l1.item() - l2.item()) / abs(l1.item())
+    print(f"  {what}: NOT bit-equal: loss {l2.item():.8f} vs {l1.item():.8f} "
+          f"(rel {rel:.2e}); {len(diffs)} parameters differ, first "
+          f"{diffs[:1]}, worst max|dp| / max|p| "
+          f"{max((d for _, d in diffs), default=0.0):.2e}", flush=True)
+    check(rel <= DP_LOSS_RTOL, f"{what}: loss rel {rel} > {DP_LOSS_RTOL}")
+    check(all(d <= DP_PARAM_ATOL for _, d in diffs),
+          f"{what}: a parameter moved by more than {DP_PARAM_ATOL} max|p|")
+    return False
+
+
+def timed_steps(step, state, args):
+    """3 warm-up and 20 timed steps, losses on the device and one fetch:
+    (ms/step, peak GB, loss curve)."""
+    losses = [step(state, *args)[0] for _ in range(WARMUP)]
+    losses[-1].item()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    for _ in range(STEPS):
+        losses.append(step(state, *args)[0])
+    curve = torch.stack(losses).cpu()
+    dt = time.perf_counter() - t
+    return dt / STEPS * 1e3, torch.cuda.max_memory_allocated() / 1e9, curve
+
+
+def phase_dp_train(dev):
+    """The data-parallel train and eval steps of the flagship (seed 0) at
+    96^3, bf16, batch 2 (bench.py's volume and a second from numpy seed 1),
+    data 2 with both rows on this card (``make_mesh(data=2,
+    devices=[cuda] * 2)``, ``shard_batch``), against the single-device
+    step at batch 2 from the same state, two steps (the second with
+    momentum); launches per step (counts zeroed just before) twice phase
+    9's per-volume counts; no plain version on a CUDA tensor; 3 warm-up
+    and 20 timed steps of each, their ms/step and peak memory (the
+    one-process design's overhead, not a scaling figure); a falling loss;
+    a profile of one dp step; the dp eval step against the single-device
+    eval step."""
+    from unetsulc_tpu_torch import kernels
+    from unetsulc_tpu_torch.models.unet3d import UNet3D
+    from unetsulc_tpu_torch.parallel import make_mesh, shard_batch
+    from unetsulc_tpu_torch.train.step import (TrainState, make_eval_step,
+                                               make_eval_step_dp,
+                                               make_train_step,
+                                               make_train_step_dp)
+
+    (x0, l0), (x1, l1) = make_batch(dev, 0), make_batch(dev, 1)
+    x, labels = torch.cat([x0, x1]), torch.cat([l0, l1])
+    del x0, l0, x1, l1
+    mesh = make_mesh(data=2, devices=[dev] * 2)
+    print(f"  data 2: mesh devices {[str(d) for d in mesh.devices]}: the rows "
+          "run one after another on this one card, so the step time is not "
+          "a scaling figure", flush=True)
+    xs, ls = shard_batch(mesh, x, labels)
+    m1, m2 = (UNet3D(in_channels=1, out_channels=CLASSES,
+                     init_channel_number=64, device=dev, seed=0)
+              for _ in range(2))
+    single = make_train_step(m1, CLASSES, momentum=0.9)
+    dp = make_train_step_dp(m2, CLASSES, mesh, momentum=0.9)
+    s1, s2 = (TrainState.create(m, lr=TRAIN_LR) for m in (m1, m2))
+    bad, equal = [], []
+    for i in range(2):
+        a = single(s1, x, labels)
+        kernels.reset_launch_counts()
+        with plain_guard(bad):
+            b = dp(s2, xs, ls)
+        sync()
+        if i == 0:
+            launches = dict(kernels.launch_counts)
+        equal.append(hold_dp(a, b, m1, m2, f"dp train step {i + 1}"))
+    print(f"  launches per dp train step: {launches}", flush=True)
+    want = {k: 0 for k in launches}
+    want.update(DP_LAUNCHES)
+    check(launches == want, f"dp launches per step {launches}, expected "
+          f"{want}")
+    check(not bad, f"dp step: plain versions got CUDA tensors: "
+          f"{sorted(set(bad))}")
+
+    ev1, ev2 = make_eval_step(m1, CLASSES), make_eval_step_dp(m2, CLASSES, mesh)
+    e1 = ev1(x, labels)
+    kernels.reset_launch_counts()
+    with plain_guard(bad):
+        e2 = ev2(xs, ls)
+    sync()
+    ev_launches = {k: v for k, v in kernels.launch_counts.items() if v}
+    print(f"  launches per dp eval step: {ev_launches}", flush=True)
+    check(ev_launches == dict(conv3x3x3_fwd=26, max_pool_buf_fwd=6),
+          f"dp eval launches {ev_launches}")
+    check(torch.equal(e1[1], e2[1]), "dp eval: confusion counts differ")
+    eval_equal = torch.equal(e1[0], e2[0])
+    rel = abs(e1[0].item() - e2[0].item()) / abs(e1[0].item())
+    print(f"  dp eval step: loss {e2[0].item():.6f} vs single-device "
+          f"{e1[0].item():.6f} ({'bit-equal' if eval_equal else f'rel {rel:.2e}'}"
+          "), counts equal", flush=True)
+    check(rel <= DP_LOSS_RTOL, f"dp eval loss rel {rel}")
+    check(not bad, "dp eval: plain versions got CUDA tensors")
+
+    single_ms, single_gb, _ = timed_steps(single, s1, (x, labels))
+    with plain_guard(bad):
+        dp_ms, dp_gb, curve = timed_steps(dp, s2, (xs, ls))
+    check(not bad, "dp timed steps: plain versions got CUDA tensors")
+    print(f"dp train step 96^3 flagship bf16, batch 2, data 2 on one card: "
+          f"{dp_ms:.2f} ms/step, peak device memory {dp_gb:.2f} GB, against "
+          f"the single-device step at batch 2 {single_ms:.2f} ms/step, "
+          f"{single_gb:.2f} GB ({STEPS} steps after {WARMUP} warm-up each)",
+          flush=True)
+    print("  loss by step: " + ", ".join(f"{v:.4f}" for v in curve.tolist()),
+          flush=True)
+    check(bool(torch.isfinite(curve).all()), "dp: non-finite loss")
+    check(curve[-1].item() < curve[0].item(), "dp: loss did not fall")
+    profile_step(lambda: dp(s2, xs, ls), "one dp step (batch 2)", 8)
+    return dict(launches=launches, bit_equal=all(equal),
+                eval_bit_equal=eval_equal, step_ms=dp_ms, peak_gb=dp_gb,
+                single_ms=single_ms, single_gb=single_gb)
+
+
+def phase_fold_parallel(seq, dev):
+    """Phase 21's training CV again with ``tpu.fold_parallel: 2`` through
+    ``run_experiment(..., devices=[dev] * 2)``: two fold threads, both
+    groups on this card; every non-timing results key equal to phase 21's
+    sequential run, the group layout recorded, the launches in all equal to
+    the sequential run's, no plain version on a CUDA tensor."""
+    from unetsulc_tpu_torch import kernels
+    from unetsulc_tpu_torch.config import Parameters
+    from unetsulc_tpu_torch.experiment.driver import run_experiment
+
+    src = seq["params"]["working_path"]
+    root = os.path.join(WORK, "experiment_folds")
+    shutil.rmtree(root, ignore_errors=True)
+    # the same graph files: the cohort file names them by path
+    shutil.copytree(os.path.join(src, "cohorts"), os.path.join(root, "cohorts"))
+    params = {**seq["params"], "working_path": root,
+              "tpu": {"fold_parallel": 2}}
+    bad = []
+    kernels.reset_launch_counts()
+    t = time.time()
+    with plain_guard(bad):
+        results = run_experiment(Parameters.from_dict(params),
+                                 devices=[dev] * 2)
+    sync()
+    wall = time.time() - t
+    launched = {k: kernels.launch_counts[k] for k in FUSED_KERNELS}
+    check(not bad, f"fold_parallel: plain versions got CUDA tensors: "
+          f"{sorted(set(bad))}")
+    layout = results.pop("fold_parallel", None)
+    print(f"  fold_parallel layout: {layout}", flush=True)
+    check(layout == {"n_groups": 2, "groups": [[str(dev)], [str(dev)]],
+                     "folds": {"0": 0, "1": 1, "2": 0}},
+          f"fold_parallel layout {layout}")
+    ref = seq["results"]
+    check(set(ref) - TIMING_KEYS == set(results) - TIMING_KEYS,
+          f"fold_parallel results keys {sorted(results)}")
+    differ = sorted(k for k in set(ref) - TIMING_KEYS if ref[k] != results[k])
+    check(not differ, f"fold_parallel results differ from the sequential "
+          f"run on {differ}")
+    check(launched == seq["main_launches"], f"fold_parallel launches "
+          f"{launched}, sequential {seq['main_launches']}")
+    print(f"fold_parallel 2 on one card: results equal to the sequential "
+          f"run on every non-timing key; launches {launched}; main() "
+          f"{wall:.1f} s against {seq['wall_s']:.1f} s sequential", flush=True)
+    return dict(wall_s=wall, seq_wall_s=seq["wall_s"])
+
+
+def phase_train_parts(seq):
+    """Phase 21's CV train phase in parts: fold 0 of the same cohort and
+    configuration, two epochs through ``learning()``, each train phase's
+    ``_epoch_pass`` given ``spans`` (host seconds of each part,
+    utils/profiling.py HostSpans): in the prefetch thread making the
+    batches (``batch``; within it the dataset's own parts: the cached
+    points as arrays, translation and augmentation, label ids,
+    voxelization; the rest is the bucket copy), pinning and enqueueing the
+    upload; in the main thread waiting for a batch, dispatching the
+    steps, the end-of-phase fetch. Epoch 0 runs as phase 21 does; epoch 1
+    under the profiler, for the device's busy share and the upload's
+    device time. Then the voxelizer alone, native against numpy on the
+    same four volumes (bit-equal), ms per volume."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from unetsulc_tpu_torch.config import Parameters
+    from unetsulc_tpu_torch.data import dataset as dataset_mod
+    from unetsulc_tpu_torch.data.dataset import SulciDataset
+    from unetsulc_tpu_torch.data.voxelize import voxelize
+    from unetsulc_tpu_torch.experiment.driver import (build_method,
+                                                      kfold_splits,
+                                                      load_cohort)
+    from unetsulc_tpu_torch.method.training import TrainingSulciLabeller
+    from unetsulc_tpu_torch.utils.profiling import HostSpans
+
+    params = Parameters.from_dict(seq["params"])
+    graphs, _ = load_cohort(params)
+    method = build_method(params, graphs)
+    train, test = next(kfold_splits(len(graphs), params.n_cvinner))
+    agraphs = np.asarray(graphs)
+    parts = []
+    orig = TrainingSulciLabeller._epoch_pass
+
+    def timed(self, phase, state, step_fn, dataset, img_size, batch_size,
+              epoch, *a, **kw):
+        if phase != "train":
+            return orig(self, phase, state, step_fn, dataset, img_size,
+                        batch_size, epoch, *a, **kw)
+        spans = HostSpans()
+        sync()
+        prof = (profile(activities=[ProfilerActivity.CPU,
+                                    ProfilerActivity.CUDA])
+                if epoch == 1 else contextlib.nullcontext())
+        with prof as p:
+            t = time.perf_counter()
+            out = orig(self, phase, state, step_fn, dataset, img_size,
+                       batch_size, epoch, *a, spans=spans, **kw)
+            sync()
+            wall = time.perf_counter() - t
+        rec = dict(epoch=epoch, wall_ms=wall * 1e3, volumes=len(dataset),
+                   ms={k: v * 1e3 for k, v in spans.seconds.items()},
+                   calls=dict(spans.calls))
+        if p is not None:
+            dev_ms = [(e.key, e.self_device_time_total / 1e3)
+                      for e in p.key_averages()
+                      if e.device_type == DeviceType.CUDA
+                      and e.self_device_time_total > 0]
+            rec["busy_ms"] = sum(ms for _, ms in dev_ms)
+            rec["htod_ms"] = sum(ms for k, ms in dev_ms if "HtoD" in k)
+        parts.append(rec)
+        return out
+
+    TrainingSulciLabeller._epoch_pass = timed
+    try:
+        method.learning(lr=params.lr, momentum=params.momentum, num_epochs=2,
+                        gfile_list_train=agraphs[train],
+                        gfile_list_test=agraphs[test], batch_size=1,
+                        save_results=False)
+    finally:
+        TrainingSulciLabeller._epoch_pass = orig
+    check([r["epoch"] for r in parts] == [0, 1], f"train phases {parts}")
+    for r in parts:
+        ms, n = r["ms"], r["volumes"]
+        main = sum(ms.get(k, 0.0) for k in ("wait", "step", "fetch"))
+        item = {k: ms.get(k, 0.0) / n
+                for k in ("points", "augment", "ids", "voxelize")}
+        line = (f"  train phase in parts, epoch {r['epoch']}"
+                f"{' (under the profiler)' if 'busy_ms' in r else ''}: "
+                f"{r['wall_ms']:.1f} ms for {n} volumes "
+                f"({r['wall_ms'] / n:.1f} ms per volume); prefetch thread: "
+                f"batch making {ms.get('batch', 0):.1f} ms "
+                f"({ms.get('batch', 0) / n:.1f} per volume: load points "
+                f"{item['points']:.2f} (the cached lists to arrays), "
+                f"translate and augment {item['augment']:.2f}, label ids "
+                f"{item['ids']:.2f}, voxelize (native) {item['voxelize']:.2f}, "
+                f"bucket copy and the rest "
+                f"{ms.get('batch', 0) / n - sum(item.values()):.2f}), pin "
+                f"{ms.get('pin', 0):.1f}, upload {ms.get('upload', 0):.1f}; "
+                f"main thread: wait {ms.get('wait', 0):.1f}, steps "
+                f"{ms.get('step', 0):.1f} (dispatch; {ms.get('step', 0) / n:.1f} "
+                f"per volume), fetch {ms.get('fetch', 0):.1f}, other "
+                f"{r['wall_ms'] - main:.1f}")
+        if "busy_ms" in r:
+            line += (f"; device busy {r['busy_ms']:.1f} ms = "
+                     f"{r['busy_ms'] / r['wall_ms'] * 100:.1f}% (idle "
+                     f"{100 - r['busy_ms'] / r['wall_ms'] * 100:.1f}%), "
+                     f"upload copies {r['htod_ms']:.2f} ms on the device")
+        print(line, flush=True)
+        check(all(v >= 0 for v in ms.values()), "negative span")
+        check(r["calls"].get("step") == n
+              and all(r["calls"].get(k) == n for k in item),
+              f"steps and items timed {r['calls']}")
+
+    # the voxelizer alone on the same volumes: native against numpy
+    ds = SulciDataset(agraphs[train], method.dict_sulci,
+                      train=method.tpu.augment, translation_file=method.trfile,
+                      dict_bck2=method.dict_bck2, dict_names=method.dict_names,
+                      seed=42)
+    captured = []
+    orig_vox = dataset_mod.voxelize
+
+    def capture(bck2, ids, img_size=None):
+        captured.append((bck2, ids, img_size))
+        return orig_vox(bck2, ids, img_size=img_size)
+
+    dataset_mod.voxelize = capture
+    try:
+        for i in range(len(ds)):
+            ds[i]
+    finally:
+        dataset_mod.voxelize = orig_vox
+    per = {True: [], False: []}
+    for bck2, ids, size in captured:
+        outs = {}
+        for native in (True, False):
+            ts = []
+            for _ in range(5):
+                t = time.perf_counter()
+                outs[native] = voxelize(bck2, ids, img_size=size,
+                                        use_native=native)
+                ts.append(time.perf_counter() - t)
+            per[native].append(statistics.median(ts) * 1e3)
+        check(all(np.array_equal(u, v) for u, v in zip(outs[True],
+                                                        outs[False])),
+              "native voxelizer differs from numpy")
+    shapes = [tuple(int(v) for v in np.max(c[0], axis=0) + 1)
+              for c in captured]
+    nat, npy = statistics.mean(per[True]), statistics.mean(per[False])
+    print(f"  voxelizer on the same {len(captured)} volumes ({len(captured[0][0])}"
+          f"-{max(len(c[0]) for c in captured)} points, extents {shapes}): "
+          f"native {nat:.2f} ms per volume, numpy {npy:.2f} ms per volume "
+          f"(medians of 5), bit-equal", flush=True)
+    return dict(parts=parts, native_ms=nat, numpy_ms=npy)
 
 
 def main():
@@ -2709,6 +3076,11 @@ def main():
     print("phase 21: the training CLI end to end (3-fold CV, then transfer)",
           flush=True)
     experiments = phase_experiment(dev)
+    print("phase 22: data and fold parallelism on one card; the CV train "
+          "phase in parts", flush=True)
+    dp_run = phase_dp_train(dev)
+    folds_run = phase_fold_parallel(experiments["FlagshipCV"], dev)
+    parts_run = phase_train_parts(experiments["FlagshipCV"])
 
     gn_src = "unetsulc_tpu_torch/csrc/group_norm.cu"
     gn_cover = "one 96^3 non-fused flagship training step"
@@ -2834,6 +3206,14 @@ def main():
           + ", ".join(f"space {n} {r['step_ms']:.2f} ms ({r['peak_gb']:.2f} GB "
                       f"peak, single-device step {r['single_peak_gb']:.2f} GB "
                       "measured alike)" for n, r in sp_runs.items())
+          + f"; dp train step (batch 2, data 2, one card) "
+          f"{dp_run['step_ms']:.2f} ms ({dp_run['peak_gb']:.2f} GB; "
+          f"single-device batch 2 {dp_run['single_ms']:.2f} ms, "
+          f"{dp_run['single_gb']:.2f} GB; bit-equal {dp_run['bit_equal']}); "
+          f"fold_parallel 2 CV main() {folds_run['wall_s']:.1f} s against "
+          f"{folds_run['seq_wall_s']:.1f} s; voxelizer native "
+          f"{parts_run['native_ms']:.2f} ms against numpy "
+          f"{parts_run['numpy_ms']:.2f} ms per volume"
           + f"; total script {time.time() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": line}), flush=True)
     print(card_line(), flush=True)

@@ -3,7 +3,10 @@ CPU: the ``cohort_dir`` fixture (six synthetic graphs) through both
 drivers, 3 folds, 2 epochs, batch 2, ``num_filter`` 8, f32, ``cuda`` -1;
 then a transfer-learning experiment from the same ``.mdsm`` through both.
 
-The port runs through its CLI in process (``unetsulc_tpu_torch.main``).
+The port runs through its CLI in process (``unetsulc_tpu_torch.main``),
+both experiments also with ``tpu.fold_parallel: 2`` (folds in two threads
+on two CPU groups; transfer falls back to the sequential loop), held to
+the sequential port run exactly on every key but the timings.
 Initial weights cannot match across frameworks (``jax.random.key(0)``
 against a ``torch.Generator``), so the port starts from JAX's initial
 parameters (and, for transfer, from JAX's swapped head): the test patches
@@ -136,6 +139,12 @@ def runs(cohort_dir, tmp_path_factory):
         # the transfer experiment starts from JAX's fold-0 model
         wpt = _workdir(root, "port_transfer", cohort_dir)
         out["port_transfer"] = (wpt, _port_cli(wpt, _transfer(wj)))
+        fold_par = {"tpu": {**TPU, "fold_parallel": 2}}
+        wpf = _workdir(root, "port_fold", cohort_dir)
+        out["port_fold"] = (wpf, _port_cli(wpf, {**TRAIN, **fold_par}))
+        wptf = _workdir(root, "port_transfer_fold", cohort_dir)
+        out["port_transfer_fold"] = (
+            wptf, _port_cli(wptf, {**_transfer(wj), **fold_par}))
     return out
 
 
@@ -230,3 +239,49 @@ def test_transfer_fine_tunes_as_jax(runs):
     _, rp = runs["port_transfer"]
     # the forced unfreeze at int(0.8 * 2) = 1 in every fold
     assert rp["fine_tunning_epoch"] == rj["fine_tunning_epoch"] == [1, 1]
+
+
+# ---------------------------------------------------------------------------
+# fold parallelism: the port's runs at fold_parallel 2 against its own
+# sequential runs (tests/test_experiment.py:237-300 and :410 for JAX)
+# ---------------------------------------------------------------------------
+
+TIMING = {"duration", "voxels_per_sec_train", "voxels_per_sec_val"}
+
+
+@pytest.mark.parametrize("which", ["", "_transfer"])
+def test_fold_parallel_matches_sequential(runs, which):
+    """Every non-timing key of the results equals the sequential run's;
+    training records the group layout (folds 0 and 2 on group 0, fold 1
+    on group 1), transfer runs its folds sequentially and records none."""
+    _, seq = runs["port" + which]
+    _, par = runs["port" + which + "_fold"]
+    par = dict(par)
+    layout = par.pop("fold_parallel", None)
+    if which:
+        assert layout is None
+    else:
+        assert layout == {"n_groups": 2, "groups": [["cpu"], ["cpu"]],
+                          "folds": {"0": 0, "1": 1, "2": 0}}
+    assert set(seq) - TIMING == set(par) - TIMING
+    for key in set(seq) - TIMING:
+        assert par[key] == seq[key], key
+
+
+@pytest.mark.parametrize("which", ["", "_transfer"])
+def test_fold_parallel_artifacts_under_true_fold_index(runs, which):
+    """The artifact tree is the sequential run's, and each fold's saved
+    model holds the sequential fold's weights (compared as tensors: the
+    file's zip container holds timestamps)."""
+    import torch
+
+    wseq, _ = runs["port" + which]
+    wpar, _ = runs["port" + which + "_fold"]
+    assert _tree(wpar) == _tree(wseq)
+    name = "SmokeModel" if not which else "TransferSmoke"
+    for cvi in range(3 if not which else 2):
+        a, b = (torch.load(op.join(w, "models", name,
+                                   f"{name}_cv{cvi}_model.mdsm"))
+                for w in (wseq, wpar))
+        assert a.keys() == b.keys()
+        assert all(torch.equal(a[k], b[k]) for k in a)

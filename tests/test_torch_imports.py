@@ -1,6 +1,7 @@
-"""The port stands alone: no JAX, nothing of ``unetsulc_tpu``, and no
-silent move to the CPU."""
+"""The port stands alone: no JAX, nothing of ``unetsulc_tpu`` (not even a
+file of it read at run time), and no silent move to the CPU."""
 
+import ast
 import json
 import re
 import subprocess
@@ -22,9 +23,13 @@ FORBIDDEN = re.compile(
 )
 
 
-# the spatial-parallel modules, held to the rule by name as well
+# the parallel and native-runtime modules, held to the rule by name as well
 PARALLEL = ["unetsulc_tpu_torch.parallel", "unetsulc_tpu_torch.parallel.mesh",
-            "unetsulc_tpu_torch.parallel.sp_fused"]
+            "unetsulc_tpu_torch.parallel.sp_fused",
+            "unetsulc_tpu_torch.runtime"]
+# a path component naming the JAX package's directory
+JAX_DIR = re.compile(r"(^|[/\\])unetsulc_tpu([/\\]|$)")
+CITATION = re.compile(r"\.py:\d+$")
 
 
 def test_port_imports_without_jax():
@@ -49,11 +54,47 @@ def test_port_imports_without_jax():
 
 
 def test_source_scan_covers_parallel():
-    """The source scan below reads the ``parallel`` package's files."""
+    """The source scan below reads the ``parallel`` and ``runtime``
+    packages' files."""
     scanned = {str(p.relative_to(ROOT)) for p in SOURCES}
     assert {"unetsulc_tpu_torch/parallel/__init__.py",
             "unetsulc_tpu_torch/parallel/mesh.py",
-            "unetsulc_tpu_torch/parallel/sp_fused.py"} <= scanned
+            "unetsulc_tpu_torch/parallel/sp_fused.py",
+            "unetsulc_tpu_torch/runtime/__init__.py"} <= scanned
+
+
+def _code_strings(tree):
+    """The string constants of a module that are not docstrings."""
+    docs = set()
+    for n in ast.walk(tree):
+        if (isinstance(n, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                           ast.AsyncFunctionDef)) and n.body
+                and isinstance(n.body[0], ast.Expr)
+                and isinstance(n.body[0].value, ast.Constant)):
+            docs.add(id(n.body[0].value))
+    return [n.value for n in ast.walk(tree)
+            if isinstance(n, ast.Constant) and isinstance(n.value, str)
+            and id(n) not in docs]
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_source_reads_no_jax_file(path):
+    """No string of the port's code or of chip_smoke.py names a path in
+    the JAX package's directory, except as a ``file.py:line`` citation
+    (chip_smoke.py's ``replaces`` keys): the port reads none of its files,
+    the C++ voxelizer's source included."""
+    hits = [v for v in _code_strings(ast.parse(path.read_text()))
+            if (JAX_DIR.search(v) or v.strip() == "unetsulc_tpu")
+            and not CITATION.search(v)]
+    assert hits == [], hits
+
+
+def test_runtime_builds_its_own_source():
+    """The native voxelizer compiles the port's copy of the C++ source."""
+    from unetsulc_tpu_torch import runtime
+
+    assert runtime.SRC == PORT / "runtime" / "voxelize.cpp"
+    assert runtime.SRC.exists()
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))

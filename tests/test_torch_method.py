@@ -138,9 +138,15 @@ def point_clouds():
     return {n: i for i, n in enumerate(labels)}, bck2, names
 
 
-@pytest.mark.parametrize("batch,fixed", [(1, False), (2, False), (2, True)],
-                         ids=["bucket_b1", "grouped_b2", "fixed_b2"])
-def test_iterate_batches_match_jax(point_clouds, batch, fixed):
+@pytest.mark.parametrize(
+    "batch,fixed,alloc",
+    [(1, False, None), (2, False, None), (2, True, None), (1, False, 2),
+     (3, False, 4), (3, True, 4)],
+    ids=["bucket_b1", "grouped_b2", "fixed_b2", "bucket_b1_alloc2",
+         "grouped_b3_alloc4", "fixed_b3_alloc4"])
+def test_iterate_batches_match_jax(point_clouds, batch, fixed, alloc):
+    """Batches, and with ``alloc_batch`` (the data-parallel padding) the
+    padded ones, equal JAX's."""
     sulci, bck2, names = point_clouds
     files = sorted(bck2)
 
@@ -150,7 +156,8 @@ def test_iterate_batches_match_jax(point_clouds, batch, fixed):
         size = mod.choose_static_size(ds, num_epochs=2) if fixed else None
         if size is not None:
             ds.img_size = list(size)
-        return size, list(mod.iterate_batches(ds, batch, size, epoch=1))
+        return size, list(mod.iterate_batches(ds, batch, size, epoch=1,
+                                              alloc_batch=alloc))
 
     size_p, got = batches(pipeline, SulciDataset)
     size_j, want = batches(jax_pipeline, JaxDataset)
@@ -174,6 +181,29 @@ def test_device_iterator_on_cpu(point_clouds, prefetch):
         assert lb.dtype == torch.int64 and real == w.real
         np.testing.assert_array_equal(x.numpy(), w.inputs)
         np.testing.assert_array_equal(lb.numpy(), w.labels)
+
+
+def test_device_iterator_host_spans(point_clouds):
+    """With ``spans`` the pipeline times making each batch in the prefetch
+    thread and the consumer's waits (no pinning or upload on the CPU), and
+    the dataset each item's parts."""
+    from unetsulc_tpu_torch.utils.profiling import HostSpans
+
+    sulci, bck2, names = point_clouds
+    ds = SulciDataset(sorted(bck2), sulci, train=False, dict_bck2=bck2,
+                      dict_names=names)
+    spans = HostSpans()
+    ds.spans = spans
+    got = list(pipeline.device_iterator(pipeline.iterate_batches(ds, 1),
+                                        "cpu", prefetch=2, spans=spans))
+    assert len(got) == len(bck2)
+    n = len(bck2)
+    assert spans.calls == {"batch": n + 1, "wait": n + 1, "points": n,
+                           "augment": n, "ids": n, "voxelize": n}
+    assert all(v >= 0 for v in spans.seconds.values())
+    assert (sum(spans.seconds[k] for k in ("points", "augment", "ids",
+                                           "voxelize"))
+            <= spans.seconds["batch"])
 
 
 # ---------------------------------------------------------------------------
@@ -436,9 +466,12 @@ def test_route_steps_records_and_raises(cohort_dir, tmp_path):
         _route_steps(nonfused, 3, 0.9, spatial=2)
     with pytest.raises(NotImplementedError, match="item 6"):
         _route_steps(model(), 3, 0.9, spatial=3)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        _route_steps(model(), 3, 0.9, dp=2)
+    _, _, mesh, rec = _route_steps(model(), 3, 0.9, dp=2)
+    assert rec["step"] == "dp_mesh" and rec["data_parallel"] == 2
+    assert mesh.data == 2 and mesh.space == 1
+    assert all(d.type == "cpu" for d in mesh.devices)
     path = _write_params(str(tmp_path / "wp"), cohort_dir, cuda=-1,
                          tpu={**FAST, "fold_parallel": 2})
-    with pytest.raises(NotImplementedError, match="item 5"):
-        run_experiment(Parameters.from_file(path))
+    results = run_experiment(Parameters.from_file(path))
+    assert len(results["best_acc"]) == 2
+    assert results["fold_parallel"]["folds"] == {"0": 0, "1": 1}

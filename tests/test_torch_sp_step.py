@@ -223,11 +223,15 @@ def test_ineligible_slabs_raise():
 
 
 def test_make_mesh_axes():
-    """``data`` > 1 raises ValueError (the data axis is not ported); with
-    no device list and fewer cards than shards it raises instead of
-    placing shards on the CPU; a CPU list runs the shards there."""
-    with pytest.raises(ValueError, match="data axis"):
+    """A (data, space) mesh takes data x space devices and raises
+    ValueError with fewer; with no device list and fewer cards than shards
+    it raises instead of placing shards on the CPU; a CPU list runs the
+    shards there."""
+    with pytest.raises(ValueError, match="takes 4 devices"):
         make_mesh(data=2, space=2, devices=[CPU] * 2)
+    grid = make_mesh(data=2, space=2, devices=[CPU] * 4)
+    assert (grid.data, grid.space) == (2, 2)
+    assert grid.row(1).space == 2 and grid.row(1).data == 1
     if torch.cuda.device_count() < 2:
         with pytest.raises(RuntimeError, match="CUDA devices"):
             make_mesh(space=2)

@@ -113,12 +113,13 @@ class TpuConfig:
     The port reads ``compute_dtype``, ``shape_buckets``, ``device_vote``,
     ``pallas_blocks`` (the model's ``fused_blocks``: False sends every
     input to the non-fused path), ``spatial_parallel`` (the sp step on a
-    mesh of that many cards), ``prefetch``, ``reset_momentum_on_divide``,
+    mesh of that many cards), ``data_parallel`` (the batch over that many
+    data rows of the mesh, ``make_train_step_dp``; 0 and 1 mean none),
+    ``fold_parallel`` (that many CV folds at once, each on its own group
+    of the cards), ``prefetch``, ``reset_momentum_on_divide``,
     ``checkpoint_every``, ``resume``, ``evaluate``, ``augment`` and
-    ``sp_shard_middle`` / ``sp_shard_deep``. ``data_parallel`` > 1 and
-    ``fold_parallel`` > 1 raise ``NotImplementedError`` (not ported:
-    ROADMAP.md §1 item 5); ``pallas_groupnorm``, ``sp_pallas_cpu`` and
-    ``remat`` configure nothing in the port."""
+    ``sp_shard_middle`` / ``sp_shard_deep``; ``pallas_groupnorm``,
+    ``sp_pallas_cpu`` and ``remat`` configure nothing in the port."""
 
     # compute dtype of the convs and matmuls ('bfloat16' or 'float32');
     # GroupNorm statistics and parameters stay float32 either way

@@ -28,6 +28,7 @@ from unetsulc_tpu_torch.data.geometry import (
 from unetsulc_tpu_torch.data.voxelize import names_to_ids, voxelize
 from unetsulc_tpu_torch.io.container import read_graph
 from unetsulc_tpu_torch.io.translation import FoldLabelsTranslator
+from unetsulc_tpu_torch.utils.profiling import span
 
 
 class SulciDataset:
@@ -35,6 +36,10 @@ class SulciDataset:
 
     ``__getitem__`` returns ``(input, labels)``:
     input (X, Y, Z, 1) float32, labels (X, Y, Z) int32 with background -1.
+    With ``spans`` set (a :class:`~unetsulc_tpu_torch.utils.profiling.HostSpans`)
+    it times its parts: ``points`` (the cached point lists as arrays),
+    ``augment`` (translation and augmentation), ``ids`` (the label ids) and
+    ``voxelize``.
     """
 
     ROT_ANGLE = math.pi / 16  # ref dataset.py:27
@@ -62,6 +67,7 @@ class SulciDataset:
         self.img_size = list(img_size) if img_size is not None else None
         self.seed = seed
         self.epoch = 0  # bump via set_epoch for a fresh augmentation stream
+        self.spans = None  # HostSpans of __getitem__'s parts, when set
 
     def set_epoch(self, epoch: int) -> None:
         self.epoch = int(epoch)
@@ -90,15 +96,19 @@ class SulciDataset:
 
     def __getitem__(self, index: int):
         gfile = self.gfile_list[index]
-        bck2, names = self._load_points(gfile)
+        with span(self.spans, "points"):
+            bck2, names = self._load_points(gfile)
 
-        bck2 = bck2 - np.min(bck2, axis=0)  # translate to origin
-        if self.train:
-            bck2 = augment_points(bck2, self.rot_angle, self._rng(index))
-        bck2 = np.asarray(bck2, dtype=np.int64)
+        with span(self.spans, "augment"):
+            bck2 = bck2 - np.min(bck2, axis=0)  # translate to origin
+            if self.train:
+                bck2 = augment_points(bck2, self.rot_angle, self._rng(index))
+            bck2 = np.asarray(bck2, dtype=np.int64)
 
-        label_ids = names_to_ids(names, self.dict_sulci)
-        return voxelize(bck2, label_ids, img_size=self.img_size)
+        with span(self.spans, "ids"):
+            label_ids = names_to_ids(names, self.dict_sulci)
+        with span(self.spans, "voxelize"):
+            return voxelize(bck2, label_ids, img_size=self.img_size)
 
     def __len__(self) -> int:
         return len(self.gfile_list)

@@ -27,6 +27,8 @@ from typing import Iterator, Optional, Sequence
 import numpy as np
 import torch
 
+from unetsulc_tpu_torch.utils.profiling import HostSpans, span
+
 
 @dataclass
 class Batch:
@@ -40,6 +42,7 @@ def iterate_batches(
     batch_size: int,
     img_size: Optional[Sequence[int]] = None,
     epoch: int = 0,
+    alloc_batch: Optional[int] = None,
 ) -> Iterator[Batch]:
     """Yield batches in dataset order (reference: shuffle=False), each
     sample voxelized for ``epoch``'s augmentation draw.
@@ -53,13 +56,22 @@ def iterate_batches(
     shapes, ref dataset.py:74-77). At batch 1 each sample is its own batch;
     at batch > 1 samples are grouped by bucket (which reorders them within
     the epoch), each group cut into padded batches.
+
+    ``alloc_batch`` (>= ``batch_size``) pads every batch's leading axis to
+    that many samples with all-background ones, which are exactly neutral
+    in the masked loss and the counts: a data-parallel batch must split
+    evenly over the mesh's ``data`` rows. With it, batch-1 buckets go
+    through the grouped path, one sample per batch.
     """
     if hasattr(dataset, "set_epoch"):
         dataset.set_epoch(epoch)
     n = len(dataset)
+    alloc = alloc_batch or batch_size
+    if alloc < batch_size:
+        raise ValueError(f"alloc_batch {alloc} < batch_size {batch_size}")
 
     def batch(idxs, size):
-        inputs = np.zeros((batch_size, *size, 1), np.float32)
+        inputs = np.zeros((alloc, *size, 1), np.float32)
         labels = np.full(inputs.shape[:4], -1, np.int32)
         for bi, i in enumerate(idxs):
             vol_in, vol_lb = dataset[i]
@@ -79,7 +91,7 @@ def iterate_batches(
         return
     from unetsulc_tpu_torch.data.voxelize import bucket_size
 
-    if batch_size == 1:
+    if batch_size == 1 and alloc == 1:
         for i in range(n):
             # voxelized once: its extent gives the bucket
             vol_in, vol_lb = dataset[i]
@@ -105,6 +117,7 @@ def device_iterator(
     device,
     prefetch: int = 2,
     stream: Optional["torch.cuda.Stream"] = None,
+    spans: Optional[HostSpans] = None,
 ):
     """Yield ``(inputs, labels, real)`` on ``device``: inputs (B, X, Y, Z,
     1) float32, labels (B, X, Y, Z) int64.
@@ -115,19 +128,34 @@ def device_iterator(
     tensors are yielded, so the step that reads them is ordered after it.
     With ``prefetch > 0`` a background thread voxelizes and uploads up to
     ``prefetch`` batches ahead of the consumer; ``prefetch <= 0`` does it
-    all in the caller's thread, one batch at a time."""
+    all in the caller's thread, one batch at a time. ``spans`` times the
+    parts on the host (:class:`~unetsulc_tpu_torch.utils.profiling.HostSpans`):
+    ``batch`` (making the next batch), ``pin``, ``upload`` (enqueueing the
+    copies) and the consumer's ``wait`` for a batch."""
     device = torch.device(device)
     on_card = device.type == "cuda"
     if on_card and stream is None:
         stream = torch.cuda.Stream(device)
+
+    def made(batches):
+        it = iter(batches)
+        while True:
+            with span(spans, "batch"):
+                b = next(it, None)
+            if b is None:
+                return
+            yield b
+
+    batches = made(batches)
 
     def put(batch: Batch):
         inp = torch.from_numpy(batch.inputs)
         lab = torch.from_numpy(batch.labels)
         if not on_card:
             return inp.to(device), lab.to(device, torch.int64), batch.real, None
-        inp, lab = inp.pin_memory(), lab.pin_memory()
-        with torch.cuda.stream(stream):
+        with span(spans, "pin"):
+            inp, lab = inp.pin_memory(), lab.pin_memory()
+        with span(spans, "upload"), torch.cuda.stream(stream):
             inp_d = inp.to(device, non_blocking=True)
             lab_d = lab.to(device, non_blocking=True).long()
             done = torch.cuda.Event()
@@ -166,7 +194,8 @@ def device_iterator(
     t = threading.Thread(target=producer, daemon=True)
     t.start()
     while True:
-        item = q.get()
+        with span(spans, "wait"):
+            item = q.get()
         if item is _END:
             if err:
                 raise err[0]

@@ -1,10 +1,13 @@
-"""Dense voxelization of sulci point clouds (host side, numpy).
+"""Dense voxelization of sulci point clouds (host side).
 
 Rebuild of the reference's per-item tensor construction
 (ref dataset.py:72-88): a binary occupancy volume plus an integer label
 volume initialized to background (-1), in the channels-last
 ``(X, Y, Z, 1)`` layout, with the same cubic shape buckets as the JAX
-package so both label the same volumes.
+package so both label the same volumes. A float32 volume is scattered by
+the port's C++ voxelizer (:mod:`unetsulc_tpu_torch.runtime`); the numpy
+scatter is its plain version (``use_native=False``) and the path of other
+dtypes.
 
 Zero-padding semantics: the reference pads with input=0 / label=background
 whenever a fixed ``img_size`` is used (ref dataset.py:76-88), and GroupNorm
@@ -44,6 +47,7 @@ def voxelize(
     img_size: Optional[Sequence[int]] = None,
     background: int = _BACKGROUND,
     dtype=np.float32,
+    use_native: Optional[bool] = None,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Scatter points into (input, labels) dense volumes.
 
@@ -58,11 +62,21 @@ def voxelize(
     (ref dataset.py:85-86): the last point of each voxel is selected
     explicitly, so the result does not rest on numpy's unspecified order
     of repeated-index assignment.
+
+    ``use_native`` (default: for float32) scatters with the C++ voxelizer
+    of :mod:`unetsulc_tpu_torch.runtime`, which gives the same volumes.
     """
     bck2 = np.asarray(bck2, dtype=np.int64)
     if img_size is None:
         img_size = np.max(bck2, axis=0) + 1 if len(bck2) else np.ones(3, int)
     sx, sy, sz = (int(s) for s in img_size)
+    if use_native is None:
+        use_native = np.dtype(dtype) == np.float32
+    if use_native:
+        from unetsulc_tpu_torch import runtime
+
+        return runtime.voxelize_native(bck2, label_ids, (sx, sy, sz),
+                                       background=background)
     vol_in = np.zeros((sx, sy, sz, 1), dtype=dtype)
     vol_lb = np.full((sx, sy, sz), background, dtype=np.int32)
     if len(bck2):

@@ -9,12 +9,15 @@ the fold's model; after the last fold, the cross-fold threshold vote and
 the params files. Every artifact lands under ``working_path``; the results
 dict is returned.
 
-``tpu.fold_parallel > 1`` raises ``NotImplementedError``: folds on device
-groups of several cards are not ported (ROADMAP.md §1 item 5).
+``tpu.fold_parallel > 1`` runs the remaining folds concurrently, each in a
+thread of its own on its own device group (:func:`_run_folds_parallel`),
+and merges their results in fold order, so the results equal the
+sequential run's on every key but the timings.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import os
@@ -23,10 +26,12 @@ import time
 from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from unetsulc_tpu_torch.config import Parameters
 from unetsulc_tpu_torch.method.training import TrainingSulciLabeller
 from unetsulc_tpu_torch.method.transfer import TransferSulciLabeller
+from unetsulc_tpu_torch.parallel.mesh import device_groups
 
 
 def kfold_splits(n: int, n_splits: int,
@@ -163,14 +168,118 @@ def merge_fold_results(canonical: dict, fold: dict) -> None:
             canonical[key] = val
 
 
-def run_experiment(params: Parameters, device: Optional[str] = None):
+def _run_fold(method, params: Parameters, cvi: int, glist_train,
+              glist_test, glist_notcut_test, model_name: str,
+              persist: bool = False) -> None:
+    """CV fold ``cvi`` on ``method``: training, the cutting thresholds
+    when there are not-cut graphs, the fold's model file, with ``persist``
+    the method's results file (the sequential loop; a concurrent fold's
+    results are saved when the driver merges them) and, with
+    ``tpu.evaluate``, the fold's per-subject scores."""
+    method.learning(
+        lr=params.lr,
+        momentum=params.momentum,
+        num_epochs=params.n_epochs,
+        gfile_list_train=glist_train,
+        gfile_list_test=glist_test,
+        batch_size=params.batch_size,
+        patience=params.patience,
+        save_results=True,
+    )
+    if glist_notcut_test is not None:
+        print("\nCutting")
+        method.test_thresholds(
+            gfile_list_test=glist_test,
+            gfile_list_notcut_test=glist_notcut_test,
+            threshold_range=params.th_range,
+        )
+    method.save_model(name=model_name + "_cv" + str(cvi))
+    if persist:
+        method.save_results()  # crash-safe: persist after every fold
+    if params.tpu.evaluate:
+        from unetsulc_tpu_torch.experiment.evaluation import evaluate_cohort
+
+        evaluate_cohort(method, glist_test, model_name,
+                        f"{model_name}_cv{cvi}", params.cohort_file())
+
+
+def _fold_worker(params: Parameters, graphs, cvi: int, glist_train,
+                 glist_test, glist_notcut_test, group, model_name: str
+                 ) -> dict:
+    """Run CV fold ``cvi`` on its device group and return its results
+    dict, which the driver merges in fold order.
+
+    A fresh method (the extracted data re-read from the data JSON that the
+    driver's method wrote) on the group's first device, with the group as
+    ``devices`` (a dp or sp mesh is built from it) and ``cv_index_offset``
+    set so that its tensorboard, checkpoint and model files take the true
+    fold index. Concurrent folds share no mutable state and draw no global
+    random numbers: each model's weights come from its own generator and
+    the augmentation from per-(seed, epoch, index) generators, so a fold
+    computes what it computes in the sequential loop. The thread's current
+    card is the group's, as ``jax.default_device`` pins the JAX worker."""
+    home = group[0]
+    method = build_method(params, graphs, home)
+    method.devices = tuple(group)
+    method.cv_index_offset = cvi
+    with (torch.cuda.device(home) if home.type == "cuda"
+          else contextlib.nullcontext()):
+        _run_fold(method, params, cvi, glist_train, glist_test,
+                  glist_notcut_test, model_name)
+    return method.results
+
+
+def _run_folds_parallel(params: Parameters, method, folds, graphs,
+                        notcut_agraphs, completed_folds: int, model_name: str,
+                        groups) -> None:
+    """Run the remaining CV ``folds`` concurrently, fold ``cvi`` on group
+    ``(cvi - completed_folds) % len(groups)``, in ``len(groups)`` threads
+    (the reference's fold loop shares nothing between folds: a fresh model
+    and optimizer each, results only appended). The results merge into
+    ``method.results`` in fold order, saved after each merge, with the
+    group layout under ``fold_parallel``."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    names = [[str(d) for d in g] for g in groups]
+    print(f"fold_parallel={len(groups)}: running folds concurrently on "
+          f"device groups {names}")
+    layout = {"n_groups": len(groups), "groups": names, "folds": {}}
+    agraphs = np.asarray(graphs)
+    futures = {}
+    with ThreadPoolExecutor(max_workers=len(groups)) as ex:
+        for cvi, (train, test) in folds:
+            gi = (cvi - completed_folds) % len(groups)
+            layout["folds"][str(cvi)] = gi
+            futures[cvi] = ex.submit(
+                _fold_worker, params, graphs, cvi, list(agraphs[train]),
+                list(agraphs[test]),
+                (list(notcut_agraphs[test]) if notcut_agraphs is not None
+                 else None),
+                groups[gi], model_name)
+        for cvi in sorted(futures):
+            merge_fold_results(method.results, futures[cvi].result())
+            method.results["fold_parallel"] = layout
+            method.save_results()  # crash-safe per in-order fold
+
+
+def _fold_groups(params: Parameters, device: torch.device, devices):
+    """The device groups of ``tpu.fold_parallel``: ``devices`` when given,
+    else every visible card, or on the CPU as many CPU entries as the
+    groups' meshes take."""
+    n = params.tpu.fold_parallel
+    if devices is None and device.type == "cpu":
+        per = max(1, params.tpu.data_parallel) * params.tpu.spatial_parallel
+        devices = [device] * (n * per)
+    return device_groups(n, devices)
+
+
+def run_experiment(params: Parameters, device: Optional[str] = None,
+                   devices=None):
     """Full CV run (the reference's ``__main__`` block, ref
     main.py:65-185) on ``device`` (default: the one ``params.cuda``
-    names)."""
-    if params.tpu.fold_parallel > 1:
-        raise NotImplementedError(
-            f"tpu.fold_parallel={params.tpu.fold_parallel}: folds on device "
-            "groups are not ported (ROADMAP.md §1 item 5)")
+    names). With ``tpu.fold_parallel > 1`` the folds run on device groups
+    cut from ``devices`` (default: every visible card, or the CPU when
+    ``device`` is the CPU); a list may repeat one card."""
     print("working directory: ", params.working_path)
     print("cohort: ", params.cohort_name)
     print("hemi: ", params.hemi)
@@ -204,37 +313,34 @@ def run_experiment(params: Parameters, device: Optional[str] = None):
             completed_folds = len(prior["lr"])
             print(f"Resuming: {completed_folds} fold(s) already complete")
 
+    fold_par = params.tpu.fold_parallel
+    if fold_par > 1 and params.learning == "transfer_learning":
+        # transfer folds carry state across folds: the fine-tuning
+        # unfreeze extends the method's training_layers for the folds
+        # after it (the reference's method reused across folds), which
+        # fresh concurrent methods would silently drop
+        print("fold_parallel: transfer_learning folds carry state across "
+              "folds (fine-tuning unfreeze extends training_layers for "
+              "subsequent folds, reference semantics) — running folds "
+              "sequentially")
+        fold_par = 1
+    if fold_par > 1:
+        remaining = [(cvi, split) for cvi, split in enumerate(
+            kfold_splits(len(graphs), params.n_cvinner))
+            if cvi >= completed_folds]
+        _run_folds_parallel(params, method, remaining, graphs, notcut_agraphs,
+                            completed_folds, model_name,
+                            _fold_groups(params, method.device, devices))
+
     for cvi, (train, test) in enumerate(
             kfold_splits(len(graphs), params.n_cvinner)):
-        if cvi < completed_folds:
+        if cvi < completed_folds or fold_par > 1:
             continue
         print("\n== Cross Validation {}/{} ==\n".format(
             cvi, params.n_cvinner - 1))
-        glist_test = agraphs[test]
-        method.learning(
-            lr=params.lr,
-            momentum=params.momentum,
-            num_epochs=params.n_epochs,
-            gfile_list_train=agraphs[train],
-            gfile_list_test=glist_test,
-            batch_size=params.batch_size,
-            patience=params.patience,
-            save_results=True,
-        )
-        if notcut_agraphs is not None:
-            print("\nCutting")
-            method.test_thresholds(
-                gfile_list_test=glist_test,
-                gfile_list_notcut_test=notcut_agraphs[test],
-                threshold_range=params.th_range,
-            )
-        method.save_model(name=model_name + "_cv" + str(cvi))
-        method.save_results()  # crash-safe: persist after every fold
-        if params.tpu.evaluate:
-            from unetsulc_tpu_torch.experiment.evaluation import evaluate_cohort
-
-            evaluate_cohort(method, glist_test, model_name,
-                            f"{model_name}_cv{cvi}", params.cohort_file())
+        _run_fold(method, params, cvi, agraphs[train], agraphs[test],
+                  (notcut_agraphs[test] if notcut_agraphs is not None
+                   else None), model_name, persist=True)
 
     method.save_results()
     cv_time = time.time() - start_time

@@ -165,9 +165,19 @@ _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
 
 
+_count_lock = threading.Lock()
+
+
 def reset_launch_counts() -> None:
-    for name in launch_counts:
-        launch_counts[name] = 0
+    with _count_lock:
+        for name in launch_counts:
+            launch_counts[name] = 0
+
+
+def _count(name: str) -> None:
+    """One launch of ``name``; fold threads launch kernels concurrently."""
+    with _count_lock:
+        launch_counts[name] += 1
 
 
 def _nvcc() -> str:
@@ -530,7 +540,7 @@ def conv3x3x3_fwd(
     with torch.cuda.device(x1.device):
         err = fn(*args)
     _raise_on(err, name)
-    launch_counts[name] += 1
+    _count(name)
     return y, sums
 
 
@@ -554,7 +564,7 @@ def max_pool_buf_fwd(buf: torch.Tensor, ab: Optional[torch.Tensor]) -> torch.Ten
             out.data_ptr(), torch.cuda.current_stream(buf.device).cuda_stream,
         )
     _raise_on(err, "max_pool_buf_fwd")
-    launch_counts["max_pool_buf_fwd"] += 1
+    _count("max_pool_buf_fwd")
     return out
 
 
@@ -618,7 +628,7 @@ def conv3x3x3_dx(
     with torch.cuda.device(dconv.device):
         err = fn(*args)
     _raise_on(err, name)
-    launch_counts[name] += 1
+    _count(name)
     return (dx, sums, dlo, dhi) if valid is not None else (dx, sums)
 
 
@@ -658,7 +668,7 @@ def conv3x3x3_wgrad(x: torch.Tensor, ab: torch.Tensor, dconv: torch.Tensor,
     with torch.cuda.device(x.device):
         err = fn(*args)
     _raise_on(err, name)
-    launch_counts[name] += 1
+    _count(name)
     return dw
 
 
@@ -706,7 +716,7 @@ def max_pool_buf_bwd(
             torch.cuda.current_stream(buf.device).cuda_stream,
         )
     _raise_on(err, "max_pool_buf_bwd")
-    launch_counts["max_pool_buf_bwd"] += 1
+    _count("max_pool_buf_bwd")
     return dbuf, dab
 
 
@@ -782,7 +792,7 @@ def gn_stats(x: torch.Tensor, num_groups: int,
                  inv.data_ptr(),
                  torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(err, "gn_stats")
-    launch_counts["gn_stats"] += 1
+    _count("gn_stats")
     return mean, inv
 
 
@@ -805,7 +815,7 @@ def gn_apply(x: torch.Tensor, mean: torch.Tensor, inv: torch.Tensor,
                  _sm_count(x.device), out.data_ptr(),
                  torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(err, "gn_apply")
-    launch_counts["gn_apply"] += 1
+    _count("gn_apply")
     return out
 
 
@@ -837,7 +847,7 @@ def gn_bwd_reduce(x: torch.Tensor, g: torch.Tensor, mean: torch.Tensor,
                  dbias.data_ptr(), sdx.data_ptr(), sdxx.data_ptr(),
                  torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(err, "gn_bwd_reduce")
-    launch_counts["gn_bwd_reduce"] += 1
+    _count("gn_bwd_reduce")
     return dscale, dbias, sdx, sdxx
 
 
@@ -861,7 +871,7 @@ def gn_bwd_dx(x: torch.Tensor, g: torch.Tensor, mean: torch.Tensor,
                  dx.data_ptr(),
                  torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(err, "gn_bwd_dx")
-    launch_counts["gn_bwd_dx"] += 1
+    _count("gn_bwd_dx")
     return dx
 
 
@@ -892,7 +902,7 @@ def _probe_launch(name: str, dev: torch.device, args, outs) -> None:
         err = fn(*args, *[None if t is None else t.data_ptr() for t in outs],
                  torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, name)
-    launch_counts[name] += 1
+    _count(name)
 
 
 def mxu_dot(k: int, n: int, ps: int, reps: int, device="cuda") -> torch.Tensor:

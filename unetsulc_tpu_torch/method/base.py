@@ -106,6 +106,12 @@ class SulciLabeller:
         self.dict_scores: dict = {}
 
         self._predict_fns: Dict = {}
+        # fold parallelism (tpu.fold_parallel, experiment/driver.py): the
+        # fold's device group (None: the defaults), which a dp or sp mesh
+        # is built from, and the fold's true CV index for on-disk names (a
+        # concurrent fold runs in a fresh method whose results start empty)
+        self.devices: Optional[tuple] = None
+        self.cv_index_offset = 0
         self._stream = (
             torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
         )

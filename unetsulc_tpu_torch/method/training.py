@@ -14,12 +14,15 @@ steps:
   are summed on the device and fetched once per epoch;
 * the batches come from :func:`data.pipeline.device_iterator`: voxelized
   in a background thread, copied to the card from pinned memory on the
-  method's stream.
+  method's stream;
+* with ``tpu.data_parallel > 1`` each batch is padded to a multiple of
+  the data axis (``alloc_batch``) and cut over the mesh's data rows
+  (:func:`parallel.shard_batch`), the rows' gradients meeting in the home
+  parameters.
 
-What the port does not run raises ``NotImplementedError`` instead of
-falling back: ``tpu.data_parallel > 1`` (ROADMAP.md §1 item 5) and a
-``spatial_parallel`` request the sharded fused pipeline cannot take (the
-JAX package's ``pjit_auto_spmd`` path; ROADMAP.md §1 item 6).
+A ``spatial_parallel`` request the sharded fused pipeline cannot take
+(the JAX package's ``pjit_auto_spmd`` path; ROADMAP.md §1 item 6) raises
+``NotImplementedError`` instead of falling back.
 """
 
 from __future__ import annotations
@@ -40,28 +43,38 @@ from unetsulc_tpu_torch.data.pipeline import (
 from unetsulc_tpu_torch.experiment.tensorboard import SummaryWriter
 from unetsulc_tpu_torch.method.base import SulciLabeller
 from unetsulc_tpu_torch.ops.esi import esi_from_counts
-from unetsulc_tpu_torch.parallel import make_mesh, shard_x, sp_static_shapes_ok
+from unetsulc_tpu_torch.parallel import (
+    make_mesh,
+    shard_batch,
+    shard_x,
+    sp_static_shapes_ok,
+)
 from unetsulc_tpu_torch.train.controllers import DivideLr, EarlyStopping
 from unetsulc_tpu_torch.train.step import (
     TrainState,
     make_eval_step,
+    make_eval_step_dp,
     make_eval_step_sp,
     make_train_step,
+    make_train_step_dp,
     make_train_step_sp,
 )
-from unetsulc_tpu_torch.utils.profiling import EpochTimer
+from unetsulc_tpu_torch.utils.profiling import EpochTimer, HostSpans, span
 
 
 def _route_steps(model, num_classes: int, momentum: float, dp: int = 1,
-                 spatial: int = 1):
+                 spatial: int = 1, devices=None):
     """(train_step, eval_step, mesh or None, record) for ``model``.
 
     The record has the JAX package's keys, with the port's own values:
 
-    * ``step``: ``"single_device"``, or ``"sp_mesh"`` — the spatially
-      sharded step of ``parallel/`` (``make_train_step_sp``), one process
-      driving a mesh of ``spatial`` shards, shard i on ``cuda:i`` (on the
-      CPU, every shard on the CPU);
+    * ``step``: ``"single_device"``; ``"dp_mesh"``, the data-parallel step
+      (``make_train_step_dp``) on a mesh of ``dp`` data rows; or
+      ``"sp_mesh"``, the spatially sharded step of ``parallel/``
+      (``make_train_step_sp``) on ``dp`` rows of ``spatial`` shards. One
+      process drives every shard. The mesh takes ``devices`` (a fold's
+      device group) when given, else shard i goes to ``cuda:i``; on the
+      CPU every shard is on the CPU;
     * ``kernels``: ``"fused"`` when the model's configuration takes the
       fused pipeline (kernels A-E on the card, their plain versions on the
       CPU), ``"nonfused"`` otherwise (cuDNN convs and the GroupNorm
@@ -69,40 +82,43 @@ def _route_steps(model, num_classes: int, momentum: float, dp: int = 1,
     * ``data_parallel``, ``spatial_parallel``: the requested sizes;
     * ``sp_fallback``: always False — the port has no fallback path.
     """
-    if dp > 1:
-        raise NotImplementedError(
-            f"tpu.data_parallel={dp}: the data axis is not ported (ROADMAP.md "
-            "§1 item 5)")
     fused = model.fused_config()
     record = {
-        "step": "sp_mesh" if spatial > 1 else "single_device",
+        "step": ("sp_mesh" if spatial > 1 else "dp_mesh" if dp > 1
+                 else "single_device"),
         "kernels": "fused" if fused else "nonfused",
         "data_parallel": dp,
         "spatial_parallel": spatial,
         "sp_fallback": False,
     }
     final_sigmoid = model.final_sigmoid
+    if spatial > 1 and not (fused and sp_static_shapes_ok(spatial)):
+        raise NotImplementedError(
+            f"tpu.spatial_parallel={spatial}: the sharded fused pipeline "
+            "needs a bf16 'crg' interpolating model without dropout and "
+            "a space axis in {2, 4, 8}; the JAX package's pjit_auto_spmd "
+            "path for the rest needs parallel/halo.py (ROADMAP.md §1 "
+            "item 6)")
+    if dp <= 1 and spatial <= 1:
+        return (make_train_step(model, num_classes, momentum=momentum),
+                make_eval_step(model, num_classes, final_sigmoid=final_sigmoid),
+                None, record)
+    dev = model.device
+    if devices is None and dev.type == "cpu":
+        devices = [dev] * (dp * spatial)
+    mesh = make_mesh(data=dp, space=spatial, devices=devices)
+    if mesh.home != dev:
+        raise ValueError(f"the model lives on {dev}, the mesh's home "
+                         f"device is {mesh.home}")
     if spatial > 1:
-        if not (fused and sp_static_shapes_ok(spatial)):
-            raise NotImplementedError(
-                f"tpu.spatial_parallel={spatial}: the sharded fused pipeline "
-                "needs a bf16 'crg' interpolating model without dropout and "
-                "a space axis in {2, 4, 8}; the JAX package's pjit_auto_spmd "
-                "path for the rest needs parallel/halo.py (ROADMAP.md §1 "
-                "item 6)")
-        dev = model.device
-        mesh = make_mesh(space=spatial,
-                         devices=[dev] * spatial if dev.type == "cpu" else None)
-        if mesh.home != dev:
-            raise ValueError(f"the model lives on {dev}, the mesh's home "
-                             f"device is {mesh.home}")
         return (make_train_step_sp(model, num_classes, mesh, momentum=momentum),
                 make_eval_step_sp(model, num_classes, mesh,
                                   final_sigmoid=final_sigmoid),
                 mesh, record)
-    return (make_train_step(model, num_classes, momentum=momentum),
-            make_eval_step(model, num_classes, final_sigmoid=final_sigmoid),
-            None, record)
+    return (make_train_step_dp(model, num_classes, mesh, momentum=momentum),
+            make_eval_step_dp(model, num_classes, mesh,
+                              final_sigmoid=final_sigmoid),
+            mesh, record)
 
 
 class TrainingSulciLabeller(SulciLabeller):
@@ -150,31 +166,43 @@ class TrainingSulciLabeller(SulciLabeller):
 
     # ------------------------------------------------------------------
     def _epoch_pass(self, phase: str, state: TrainState, step_fn, dataset,
-                    img_size, batch_size: int, epoch: int, mesh=None):
+                    img_size, batch_size: int, epoch: int, mesh=None,
+                    alloc_batch: Optional[int] = None,
+                    spans: Optional[HostSpans] = None):
         """One phase of one epoch. Returns (epoch_loss, counts, perf, the
         sorted volume extents its batches had).
 
         Loss and confusion counts stay on the device and are fetched once,
-        at the end of the phase: the steps never wait for the host."""
+        at the end of the phase: the steps never wait for the host.
+        ``spans`` times the phase's parts on the host: the dataset's
+        (``SulciDataset``), the pipeline's (``device_iterator``), the
+        steps' dispatch (``step``) and the end-of-phase ``fetch``."""
         timer = EpochTimer()
         loss_terms, count_terms, extents = [], [], set()
-        batches = iterate_batches(dataset, batch_size, img_size, epoch=epoch)
+        dataset.spans = spans
+        batches = iterate_batches(dataset, batch_size, img_size, epoch=epoch,
+                                  alloc_batch=alloc_batch)
         for inputs, labels, real in device_iterator(
                 batches, self.device, prefetch=self.tpu.prefetch,
-                stream=self._stream):
+                stream=self._stream, spans=spans):
             extents.add(tuple(int(v) for v in inputs.shape[1:4]))
             voxels = real * int(np.prod(inputs.shape[1:4]))
-            if mesh is not None:
+            if mesh is not None and mesh.data > 1:
+                inputs, labels = shard_batch(mesh, inputs, labels)
+            elif mesh is not None:
                 inputs, labels = shard_x(inputs, mesh), shard_x(labels, mesh)
-            if phase == "train":
-                loss, c = step_fn(state, inputs, labels)
-            else:
-                loss, c = step_fn(inputs, labels)
+            with span(spans, "step"):
+                if phase == "train":
+                    loss, c = step_fn(state, inputs, labels)
+                else:
+                    loss, c = step_fn(inputs, labels)
             loss_terms.append(loss * real)
             count_terms.append(c)
             timer.add_batch(voxels)
-        running_loss = float(torch.stack(loss_terms).sum())
-        counts = torch.stack(count_terms).sum(0).cpu().numpy().astype(np.int64)
+        with span(spans, "fetch"):
+            running_loss = float(torch.stack(loss_terms).sum())
+            counts = torch.stack(count_terms).sum(0).cpu().numpy().astype(
+                np.int64)
         return (running_loss / len(dataset), counts, timer.finish(),
                 sorted(extents))
 
@@ -211,8 +239,13 @@ class TrainingSulciLabeller(SulciLabeller):
         # # DATASETS # #
         # batch 1 with shape buckets: each sample in its cubic bucket (the
         # counterpart of the reference's batch-1 dynamic sizes); batch > 1:
-        # one fixed size per dataset, as the reference records it
-        per_sample = self.tpu.shape_buckets and batch_size == 1
+        # one fixed size per dataset, as the reference records it. Under
+        # data parallelism, samples of one bucket are grouped into batches
+        # padded to a multiple of the data axis with all-background
+        # samples (the JAX package's choice: no reference counterpart)
+        dp = max(1, self.tpu.data_parallel)
+        per_sample = self.tpu.shape_buckets and (batch_size == 1 or dp > 1)
+        alloc_batch = -(-batch_size // dp) * dp if dp > 1 else None
 
         print("Extract validation dataloader...")
         valdataset = SulciDataset(
@@ -246,9 +279,8 @@ class TrainingSulciLabeller(SulciLabeller):
         self._prepare_model_and_state(lr)
         num_classes = len(self.sulci_side_list)
         train_step, eval_step, mesh, record = _route_steps(
-            self.model, num_classes, momentum,
-            dp=max(1, self.tpu.data_parallel),
-            spatial=self.tpu.spatial_parallel)
+            self.model, num_classes, momentum, dp=dp,
+            spatial=self.tpu.spatial_parallel, devices=self.devices)
         state = self._state
 
         # # RESULTS / TENSORBOARD # #
@@ -277,8 +309,10 @@ class TrainingSulciLabeller(SulciLabeller):
             log_dir = os.path.join(self.working_path, "tensorboard",
                                    self.model_name)
             os.makedirs(log_dir, exist_ok=True)
-            writer = SummaryWriter(
-                log_dir=os.path.join(log_dir, "cv" + str(num_training)))
+            # a fold of a fold-parallel run starts a fresh method:
+            # cv_index_offset restores its true index on disk
+            writer = SummaryWriter(log_dir=os.path.join(
+                log_dir, "cv" + str(self.cv_index_offset + num_training)))
 
         ctrl = self._controllers(patience)
 
@@ -300,7 +334,7 @@ class TrainingSulciLabeller(SulciLabeller):
 
             ckptr = TrainCheckpointer(os.path.join(
                 self.working_path, "checkpoints", self.model_name,
-                f"cv{num_training}"))
+                f"cv{self.cv_index_offset + num_training}"))
             if self.tpu.resume and ckptr.latest() is not None:
                 _, tree, extra = ckptr.restore(
                     {"state": state, "best": best_params})
@@ -335,7 +369,7 @@ class TrainingSulciLabeller(SulciLabeller):
                     phase, state, train_step if train else eval_step,
                     traindataset if train else valdataset,
                     train_img_size if train else val_img_size,
-                    batch_size, epoch, mesh)
+                    batch_size, epoch, mesh, alloc_batch)
                 epoch_acc = 1 - esi_from_counts(counts, sslist_ids)
                 print("{} Loss: {:.4f} Acc: {:.4f} ({:,.0f} voxels/s, "
                       "{:.2f} s; volumes {})".format(

@@ -49,6 +49,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import threading
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -416,17 +417,38 @@ class PackedWeight:
         return self._dx[branch]
 
 
+_tf32_lock = threading.Lock()
+_tf32_users = 0
+_tf32_restore: Optional[contextlib.ExitStack] = None
+
+
 @contextlib.contextmanager
 def no_tf32():
     """f32 matmuls and convolutions in full f32 (no TF32), the plain
-    versions' arithmetic."""
-    saved = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
+    versions' arithmetic.
+
+    The flags are process-wide and fold threads overlap their contexts,
+    so they are counted: the first context to enter (in any thread) turns
+    TF32 off, and only the last one to leave restores the saved flags."""
+    global _tf32_users, _tf32_restore
+    with _tf32_lock:
+        if _tf32_users == 0:
+            stack = contextlib.ExitStack()
+            stack.callback(setattr, torch.backends.cuda.matmul, "allow_tf32",
+                           torch.backends.cuda.matmul.allow_tf32)
+            torch.backends.cuda.matmul.allow_tf32 = False
+            stack.enter_context(
+                torch.backends.cudnn.flags(enabled=True, allow_tf32=False))
+            _tf32_restore = stack
+        _tf32_users += 1
     try:
-        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
-            yield
+        yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32 = saved
+        with _tf32_lock:
+            _tf32_users -= 1
+            if _tf32_users == 0:
+                _tf32_restore.close()
+                _tf32_restore = None
 
 
 def _normalized(x, aff, mask, dtype):

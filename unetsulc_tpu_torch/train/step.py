@@ -32,7 +32,20 @@ spatial-parallel steps: each volume split along X over a mesh's shards
 (``UNet3D.forward_sp``), the shards' NLL sums, valid counts and confusion
 counts added on the mesh's home device, and one backward of the summed
 loss, so the gradients of all shards meet in the model's parameters (the
-JAX steps' psums) before the same SGD-with-momentum update.
+JAX steps' psums) before the same SGD-with-momentum update. On a mesh
+with ``data`` > 1 each data row runs its own volumes so.
+
+:func:`make_train_step_dp` and :func:`make_eval_step_dp` are the
+data-parallel steps: the batch cut over the mesh's ``data`` rows
+(``parallel.shard_batch``), each row running its local batch as
+:func:`make_train_step` runs a batch (one volume at a time on the fused
+path) with the model's weights read on the row's device; the rows' NLL
+sums and valid counts are added on the home device before the division,
+so the loss is the global batch mean whatever the number of rows, and the
+gradients meet in the home parameters' ``.grad`` before one update. With
+every row on one device, a batch of one volume per row takes the very
+operations of :func:`make_train_step` on the whole batch, in the same
+order.
 """
 
 from __future__ import annotations
@@ -73,13 +86,103 @@ def _volumes(model, inputs: torch.Tensor) -> List[slice]:
     return [slice(None)]
 
 
-def dropout_generator(seed: int, step: int, device) -> torch.Generator:
+def dropout_generator(seed: int, step: int, device,
+                      shard: Optional[int] = None) -> torch.Generator:
     """The dropout stream of one train step: a generator on ``device``
     seeded from (seed, step) (the JAX step folds ``state.step`` into its
-    dropout key the same way). The pair is hashed to 32 bits, all that the
-    CPU generator reads of a seed."""
-    mixed = np.random.SeedSequence([seed, step]).generate_state(1)[0]
+    dropout key the same way), and from the data shard's index in a
+    data-parallel step (JAX folds ``axis_index("data")`` in after the
+    step; here the sequence's spawn key, since entropy words of 0 at the
+    end would not change the hash). The result is hashed to 32 bits, all
+    that the CPU generator reads of a seed."""
+    seq = np.random.SeedSequence(
+        [seed, step], spawn_key=() if shard is None else (shard,))
+    mixed = seq.generate_state(1)[0]
     return torch.Generator(device=device).manual_seed(int(mixed))
+
+
+class _Method(torch.nn.Module):
+    """``model.<method>`` as a module's forward, for ``functional_call``."""
+
+    def __init__(self, model: torch.nn.Module, method: str):
+        super().__init__()
+        self.model, self.method = model, method
+
+    def forward(self, *args, **kwargs):
+        return getattr(self.model, self.method)(*args, **kwargs)
+
+
+def _replica(model: torch.nn.Module, device: torch.device,
+             method: str = "forward") -> Callable:
+    """``model.<method>`` run on ``device``: the model's own where it lives
+    on ``device``; elsewhere with its parameters read through
+    ``.to(device)`` for each call, so autograd brings their gradients home
+    (the JAX steps' replicated parameters and gradient psum)."""
+    if device == model.device:
+        return getattr(model, method)
+    moved = {"model." + n: p.to(device) for n, p in model.named_parameters()}
+    wrapped = _Method(model, method)
+    return lambda *a, **kw: torch.func.functional_call(wrapped, moved, a, kw)
+
+
+def _begin(state: "TrainState", model, momentum: float) -> None:
+    if state.model is not model:
+        raise ValueError("state belongs to another model")
+    for group in state.optimizer.param_groups:
+        group["momentum"] = momentum
+    state.optimizer.zero_grad(set_to_none=True)
+
+
+def _finish(state: "TrainState") -> None:
+    state.optimizer.step()
+    state.step += 1
+
+
+def _train_volumes(forward, model, x, lb, denom, home, gen, num_classes: int,
+                   background: int):
+    """The forwards and backwards of one chunk of a batch (``_volumes``:
+    one per volume on the fused path, one for the chunk otherwise), each
+    loss the NLL sum over the whole batch's valid count ``denom``, so the
+    gradients add up in the parameters to the batch mean's. Returns the
+    chunk's (loss, confusion counts) on ``home``."""
+    loss = torch.zeros((), dtype=torch.float32, device=home)
+    counts = torch.zeros((3, num_classes), dtype=torch.int32, device=home)
+    for v in _volumes(model, x):
+        logits = forward(x[v], train=True, padded_output=True,
+                         dropout_generator=gen)
+        lbl = _match_labels(logits, lb[v], background)
+        nll, _ = cross_entropy_sum(logits, lbl, background)
+        part = nll.to(home) / denom
+        if part.requires_grad:
+            with model.precision():
+                part.backward()
+        loss = loss + part.detach()
+        counts = counts + confusion_counts(
+            lbl, logits.detach().argmax(-1), num_classes, background).to(home)
+    return loss, counts
+
+
+def _eval_volumes(forward, model, x, lb, home, num_classes: int,
+                  background: int, apply_activation: bool,
+                  final_sigmoid: bool):
+    """One chunk's eval forwards: (NLL sum, valid count, confusion counts)
+    on ``home``; the counts from the raw logits, the NLL from the
+    activated outputs with ``apply_activation`` (the eval-mode quirk)."""
+    nll = torch.zeros((), dtype=torch.float32, device=home)
+    cnt = torch.zeros((), dtype=torch.int64, device=home)
+    counts = torch.zeros((3, num_classes), dtype=torch.int32, device=home)
+    for v in _volumes(model, x):
+        logits = forward(x[v], train=False, apply_final_activation=False,
+                         padded_output=True)
+        lbl = _match_labels(logits, lb[v], background)
+        counts = counts + confusion_counts(lbl, logits.argmax(-1),
+                                           num_classes, background).to(home)
+        if apply_activation:
+            logits = (torch.sigmoid(logits) if final_sigmoid
+                      else torch.softmax(logits, -1))
+        n, c = cross_entropy_sum(logits, lbl, background)
+        nll, cnt = nll + n.to(home), cnt + c.to(home)
+    return nll, cnt, counts
 
 
 def _sgd(params, lr: float, momentum: float) -> torch.optim.SGD:
@@ -149,32 +252,14 @@ def make_train_step(model: torch.nn.Module, num_classes: int,
 
     def step(state: TrainState, inputs: torch.Tensor,
              labels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        if state.model is not model:
-            raise ValueError("state belongs to another model")
-        opt = state.optimizer
-        for group in opt.param_groups:
-            group["momentum"] = momentum
-        opt.zero_grad(set_to_none=True)
+        _begin(state, model, momentum)
         denom = (labels != background).sum().clamp_min(1).float()
-        loss = torch.zeros((), dtype=torch.float32, device=inputs.device)
-        counts = torch.zeros((3, num_classes), dtype=torch.int32,
-                             device=inputs.device)
         gen = (dropout_generator(0, state.step, inputs.device)
                if model.dropout > 0 else None)
-        for v in _volumes(model, inputs):
-            logits = model(inputs[v], train=True, padded_output=True,
-                           dropout_generator=gen)
-            lbl = _match_labels(logits, labels[v], background)
-            nll, _ = cross_entropy_sum(logits, lbl, background)
-            part = nll / denom
-            if part.requires_grad:
-                with model.precision():
-                    part.backward()
-            loss = loss + part.detach()
-            counts = counts + confusion_counts(
-                lbl, logits.detach().argmax(-1), num_classes, background)
-        opt.step()
-        state.step += 1
+        loss, counts = _train_volumes(model, model, inputs, labels, denom,
+                                      inputs.device, gen, num_classes,
+                                      background)
+        _finish(state)
         return loss, counts
 
     return step
@@ -189,15 +274,45 @@ def _check_slabs(mesh: Mesh, inputs, labels) -> None:
             raise ValueError(f"slab {k} is not on its shard's device {d}")
 
 
-def _sp_volume(model, xs, lbs, num_classes: int, background: int, home,
+def _sp_rows(mesh: Mesh, inputs, labels):
+    """[(row mesh, input slabs, label slabs)] of an sp step's arguments:
+    the slabs themselves on a mesh with one data row, one list of slabs per
+    row (``parallel.shard_batch``) otherwise."""
+    if mesh.data == 1:
+        inputs, labels = [inputs], [labels]
+    if len(inputs) != mesh.data or len(labels) != mesh.data:
+        raise ValueError(f"expected {mesh.data} data rows, got "
+                         f"{len(inputs)} and {len(labels)}")
+    rows = [(mesh.row(i), xs, ls)
+            for i, (xs, ls) in enumerate(zip(inputs, labels))]
+    for row, xs, ls in rows:
+        _check_slabs(row, xs, ls)
+    return rows
+
+
+def _check_rows(mesh: Mesh, inputs, labels) -> None:
+    if mesh.space != 1:
+        raise ValueError(f"the data-parallel step takes a mesh with space 1, "
+                         f"got {mesh.space}: use make_train_step_sp")
+    if len(inputs) != mesh.data or len(labels) != mesh.data:
+        raise ValueError(f"expected {mesh.data} input and label chunks (one "
+                         f"per data row), got {len(inputs)} and {len(labels)}")
+    for i, (x, lb) in enumerate(zip(inputs, labels)):
+        d = mesh.row(i).home
+        if x.device != d or lb.device != d:
+            raise ValueError(f"chunk {i} is not on its row's device {d}")
+
+
+def _sp_volume(run, xs, lbs, num_classes: int, background: int, home,
                train: bool, apply_activation: bool = False,
                final_sigmoid: bool = False):
-    """One volume through ``forward_sp``: (NLL sum, valid count, confusion
+    """One volume through ``run`` (the model's ``forward_sp``, on the
+    row's device: :func:`_replica`): (NLL sum, valid count, confusion
     counts), each the sum over the shards on ``home``. The counts come
     from the raw logits; with ``apply_activation`` the NLL from the
     activated outputs (the eval-mode quirk)."""
-    logits = model.forward_sp(xs, train=train, apply_final_activation=False,
-                              padded_output=True)
+    logits = run(xs, train=train, apply_final_activation=False,
+                 padded_output=True)
     nll = torch.zeros((), dtype=torch.float32, device=home)
     cnt = torch.zeros((), dtype=torch.int64, device=home)
     counts = torch.zeros((3, num_classes), dtype=torch.int32, device=home)
@@ -217,39 +332,39 @@ def make_train_step_sp(model: torch.nn.Module, num_classes: int, mesh: Mesh,
     """The spatial-parallel train step (``train/step.py:506-585`` of the
     JAX package): ``step(state, inputs, labels) -> (loss, counts)`` on the
     mesh's home device, where inputs and labels are the batch's slabs, one
-    per shard (``parallel.shard_x`` of each). Each volume of the batch runs
-    through ``model.forward_sp`` (one volume at a time, as ``scan_batch``
-    does); its loss is the shards' NLL sum over the batch's total valid
-    count, summed over the shards before one backward, so the gradient of
-    every shard meets in the parameters; then one SGD-with-momentum update
-    of ``state``, as :func:`make_train_step`. The model's parameters live
-    on the home device."""
+    per shard (``parallel.shard_x`` of each), or on a mesh with ``data`` >
+    1 one such list per data row (``parallel.shard_batch``). Each volume
+    of a row runs through ``model.forward_sp`` (one volume at a time, as
+    ``scan_batch`` does), with the weights read on the row's first device;
+    its loss is the shards' NLL sum over the whole batch's valid count,
+    summed over the shards before one backward, so the gradient of every
+    shard and row meets in the parameters; then one SGD-with-momentum
+    update of ``state``, as :func:`make_train_step`. The model's
+    parameters live on the home device."""
 
-    def step(state: TrainState, inputs: Sequence[torch.Tensor],
-             labels: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
-        if state.model is not model:
-            raise ValueError("state belongs to another model")
-        _check_slabs(mesh, inputs, labels)
+    def step(state: TrainState, inputs, labels
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+        _begin(state, model, momentum)
+        rows = _sp_rows(mesh, inputs, labels)
         home = mesh.home
-        opt = state.optimizer
-        for group in opt.param_groups:
-            group["momentum"] = momentum
-        opt.zero_grad(set_to_none=True)
-        denom = sum((lb != background).sum().to(home) for lb in labels)
+        denom = sum((lb != background).sum().to(home)
+                    for _, _, ls in rows for lb in ls)
         denom = denom.clamp_min(1).float()
         loss = torch.zeros((), dtype=torch.float32, device=home)
         counts = torch.zeros((3, num_classes), dtype=torch.int32, device=home)
-        for i in range(int(inputs[0].shape[0])):
-            nll, _, c = _sp_volume(model, [x[i:i + 1] for x in inputs],
-                                   [lb[i:i + 1] for lb in labels], num_classes,
-                                   background, home, train=True)
-            part = nll / denom
-            if part.requires_grad:
-                part.backward()
-            loss = loss + part.detach()
-            counts = counts + c
-        opt.step()
-        state.step += 1
+        for row, xs, ls in rows:
+            run = _replica(model, row.home, "forward_sp")
+            for i in range(int(xs[0].shape[0])):
+                nll, _, c = _sp_volume(run, [x[i:i + 1] for x in xs],
+                                       [lb[i:i + 1] for lb in ls],
+                                       num_classes, background, home,
+                                       train=True)
+                part = nll / denom
+                if part.requires_grad:
+                    part.backward()
+                loss = loss + part.detach()
+                counts = counts + c
+        _finish(state)
         return loss, counts
 
     return step
@@ -259,25 +374,89 @@ def make_eval_step_sp(model: torch.nn.Module, num_classes: int, mesh: Mesh,
                       background: int = -1, apply_activation: bool = True,
                       final_sigmoid: bool = False) -> Callable:
     """The spatial-parallel eval step (``make_eval_step_sp`` of the JAX
-    package): ``step(inputs, labels) -> (loss, counts)`` on slabs, one
-    volume at a time, the shards' sums added as
-    :func:`make_train_step_sp` adds them; loss and counts as
-    :func:`make_eval_step`."""
+    package): ``step(inputs, labels) -> (loss, counts)`` on slabs (per
+    data row on a mesh with ``data`` > 1), one volume at a time, the
+    shards' and rows' sums added as :func:`make_train_step_sp` adds them;
+    loss and counts as :func:`make_eval_step`."""
 
     @torch.no_grad()
-    def step(inputs: Sequence[torch.Tensor],
-             labels: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
-        _check_slabs(mesh, inputs, labels)
+    def step(inputs, labels) -> Tuple[torch.Tensor, torch.Tensor]:
+        rows = _sp_rows(mesh, inputs, labels)
         home = mesh.home
         nll = torch.zeros((), dtype=torch.float32, device=home)
         cnt = torch.zeros((), dtype=torch.int64, device=home)
         counts = torch.zeros((3, num_classes), dtype=torch.int32, device=home)
-        for i in range(int(inputs[0].shape[0])):
-            n, c, cc = _sp_volume(model, [x[i:i + 1] for x in inputs],
-                                  [lb[i:i + 1] for lb in labels], num_classes,
-                                  background, home, train=False,
-                                  apply_activation=apply_activation,
-                                  final_sigmoid=final_sigmoid)
+        for row, xs, ls in rows:
+            run = _replica(model, row.home, "forward_sp")
+            for i in range(int(xs[0].shape[0])):
+                n, c, cc = _sp_volume(run, [x[i:i + 1] for x in xs],
+                                      [lb[i:i + 1] for lb in ls], num_classes,
+                                      background, home, train=False,
+                                      apply_activation=apply_activation,
+                                      final_sigmoid=final_sigmoid)
+                nll, cnt, counts = nll + n, cnt + c, counts + cc
+        return nll / cnt.clamp_min(1), counts
+
+    return step
+
+
+def make_train_step_dp(model: torch.nn.Module, num_classes: int, mesh: Mesh,
+                       momentum: float = 0.9, background: int = -1) -> Callable:
+    """The data-parallel train step (``train/step.py:412-503`` of the JAX
+    package): ``step(state, inputs, labels) -> (loss, counts)`` on the
+    mesh's home device, where inputs and labels hold one chunk of the batch
+    per data row, on the row's device (``parallel.shard_batch``; the mesh
+    has space 1). Each row runs its chunk as :func:`make_train_step` runs a
+    batch, one volume at a time on the fused path, with the model's
+    weights read on the row's device; each forward's loss is its NLL sum
+    over the whole batch's valid count, added on the home device, so the
+    loss is the global batch mean, and every row's gradient meets in the
+    home parameters' ``.grad`` before one SGD-with-momentum update. With
+    dropout, row i's masks come from ``dropout_generator(0, state.step,
+    device, shard=i)``."""
+
+    def step(state: TrainState, inputs: Sequence[torch.Tensor],
+             labels: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+        _begin(state, model, momentum)
+        _check_rows(mesh, inputs, labels)
+        home = mesh.home
+        denom = sum((lb != background).sum().to(home) for lb in labels)
+        denom = denom.clamp_min(1).float()
+        loss = torch.zeros((), dtype=torch.float32, device=home)
+        counts = torch.zeros((3, num_classes), dtype=torch.int32, device=home)
+        for i, (x, lb) in enumerate(zip(inputs, labels)):
+            gen = (dropout_generator(0, state.step, x.device, shard=i)
+                   if model.dropout > 0 else None)
+            l, c = _train_volumes(_replica(model, x.device), model, x, lb,
+                                  denom, home, gen, num_classes, background)
+            loss, counts = loss + l, counts + c
+        _finish(state)
+        return loss, counts
+
+    return step
+
+
+def make_eval_step_dp(model: torch.nn.Module, num_classes: int, mesh: Mesh,
+                      background: int = -1, apply_activation: bool = True,
+                      final_sigmoid: bool = False) -> Callable:
+    """The data-parallel eval step (``train/step.py:631-671`` of the JAX
+    package): ``step(inputs, labels) -> (loss, counts)`` on the chunks of
+    :func:`make_train_step_dp`, each row's NLL sums, valid counts and
+    confusion counts added on the home device before the division; loss
+    and counts as :func:`make_eval_step`."""
+
+    @torch.no_grad()
+    def step(inputs: Sequence[torch.Tensor],
+             labels: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+        _check_rows(mesh, inputs, labels)
+        home = mesh.home
+        nll = torch.zeros((), dtype=torch.float32, device=home)
+        cnt = torch.zeros((), dtype=torch.int64, device=home)
+        counts = torch.zeros((3, num_classes), dtype=torch.int32, device=home)
+        for x, lb in zip(inputs, labels):
+            n, c, cc = _eval_volumes(_replica(model, x.device), model, x, lb,
+                                     home, num_classes, background,
+                                     apply_activation, final_sigmoid)
             nll, cnt, counts = nll + n, cnt + c, counts + cc
         return nll / cnt.clamp_min(1), counts
 
@@ -298,21 +477,10 @@ def make_eval_step(model: torch.nn.Module, num_classes: int,
     @torch.no_grad()
     def step(inputs: torch.Tensor,
              labels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        nll = torch.zeros((), dtype=torch.float32, device=inputs.device)
-        cnt = torch.zeros((), dtype=torch.int64, device=inputs.device)
-        counts = torch.zeros((3, num_classes), dtype=torch.int32,
-                             device=inputs.device)
-        for v in _volumes(model, inputs):
-            logits = model(inputs[v], train=False,
-                           apply_final_activation=False, padded_output=True)
-            lbl = _match_labels(logits, labels[v], background)
-            counts = counts + confusion_counts(lbl, logits.argmax(-1),
-                                               num_classes, background)
-            if apply_activation:
-                logits = (torch.sigmoid(logits) if final_sigmoid
-                          else torch.softmax(logits, -1))
-            n, c = cross_entropy_sum(logits, lbl, background)
-            nll, cnt = nll + n, cnt + c
+        nll, cnt, counts = _eval_volumes(model, model, inputs, labels,
+                                         inputs.device, num_classes,
+                                         background, apply_activation,
+                                         final_sigmoid)
         return nll / cnt.clamp_min(1), counts
 
     return step

@@ -7,15 +7,22 @@
   otherwise;
 * :func:`summarize_trace` — device-kernel time from a ``torch.profiler``
   run, aggregated by kernel name (the counterpart of
-  ``summarize_xplane``).
+  ``summarize_xplane``);
+* :class:`HostSpans` — host seconds by span over an epoch phase, from the
+  prefetch thread (making a ``batch``, within it the dataset's
+  ``points``, ``augment``, ``ids`` and ``voxelize``; ``pin``, ``upload``)
+  and the main thread (``wait`` for a batch, ``step`` dispatch, the
+  end-of-phase ``fetch``): what splits a phase's time beyond the steps
+  (no JAX counterpart).
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import threading
 import time
-from typing import Iterator, List, Optional, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
 
 class EpochTimer:
@@ -75,3 +82,34 @@ def summarize_trace(prof, top: int = 20) -> List[Tuple[float, str]]:
         if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
             agg[e.key] = agg.get(e.key, 0.0) + float(e.self_device_time_total)
     return sorted(((us, name) for name, us in agg.items()), reverse=True)[:top]
+
+
+class HostSpans:
+    """Host wall time by span name, summed over calls and threads. The
+    dataset, the input pipeline and ``learning()``'s epoch pass time their
+    parts with :func:`span` when ``_epoch_pass`` is given one (None by
+    default: nothing is timed)."""
+
+    def __init__(self):
+        self.seconds: Dict[str, float] = {}
+        self.calls: Dict[str, int] = {}
+        self._lock = threading.Lock()
+
+    def add(self, name: str, seconds: float) -> None:
+        with self._lock:
+            self.seconds[name] = self.seconds.get(name, 0.0) + seconds
+            self.calls[name] = self.calls.get(name, 0) + 1
+
+
+@contextlib.contextmanager
+def span(spans: Optional[HostSpans], name: str):
+    """Time the block into ``spans[name]``; nothing when ``spans`` is
+    None."""
+    if spans is None:
+        yield
+        return
+    t = time.perf_counter()
+    try:
+        yield
+    finally:
+        spans.add(name, time.perf_counter() - t)
