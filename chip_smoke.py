@@ -169,7 +169,22 @@ order (each phase aborts the script with a non-zero exit on failure):
    end-of-phase fetch, the device's busy share under the profiler, and
    the voxelizer alone on the same volumes, native against numpy
    (bit-equal), ms per volume;
-23. prints the kernels' JSON line, the card line, and the final JSON line.
+23. the spatially sharded non-fused path on this one card: the sharded
+   GroupNorm's kernel modes (``gn_stats_sums``, ``gn_finalize``,
+   ``gn_bwd_dx`` with another count, ``gn_bwd_dx_denom``) against their
+   plain versions at the flagship's space-2 shard slabs in bf16 and f32,
+   and ``group_norm_sharded`` forward and backward against the
+   single-device GroupNorm kernels (f32, rtol 1e-5); the sharded non-fused
+   train step (``make_train_step_sp_halo``, ``[cuda] * n`` shards) of phase
+   14's model on phase 9's batch at space 2 and 3 against the
+   single-device non-fused step at phase 9's bars, its GroupNorm launches
+   per step (counts zeroed just before) against the partition's, no plain
+   version on a CUDA tensor, 3 warm-up and 10 timed steps of each beside
+   the single-device step, peak memory, a falling loss, a profile of one
+   sharded step, the sharded eval step; one f32 step at space 2 of the 'crg' interpolating flagship; and
+   ``graft_entry.dryrun_multichip(2)``; then every launch of the new modes
+   in one space-2 step timed against its plain version and its bound;
+24. prints the kernels' JSON line, the card line, and the final JSON line.
 
 It exits non-zero without a result when CUDA is not available. Scratch
 files go under ``build/chip_smoke/``.
@@ -279,24 +294,29 @@ def event_ms(graph, reps):
 def timed_row(name, shape, kern, plain, lib, bound, err):
     """One launch's row: ``kern``, ``plain`` and ``lib`` each captured as
     a CUDA graph and timed in turns (plain, kernel, library, kernel; three
-    times), medians in ms, beside the bound and the max abs error."""
-    gk, gp, gl = capture(kern), capture(plain), capture(lib)
+    times), medians in ms, beside the bound and the max abs error. ``lib``
+    None: no PyTorch call computes the function (``library_ms`` None)."""
+    gk, gp = capture(kern), capture(plain)
+    gl = None if lib is None else capture(lib)
     sync()
     ms_k, ms_p, ms_l = [], [], []
     for _ in range(3):
         ms_p.append(event_ms(gp, REPS))
         ms_k.append(event_ms(gk, REPS))
-        ms_l.append(event_ms(gl, REPS))
+        if gl is not None:
+            ms_l.append(event_ms(gl, REPS))
         ms_k.append(event_ms(gk, REPS))
     del gk, gp, gl
     row = dict(shape=shape, ms=statistics.median(ms_k),
                plain_ms=statistics.median(ms_p),
-               library_ms=statistics.median(ms_l), bound_ms=bound,
-               max_abs_err=err)
+               library_ms=statistics.median(ms_l) if ms_l else None,
+               bound_ms=bound, max_abs_err=err)
+    lib_txt = ("none" if row["library_ms"] is None
+               else f"{row['library_ms']:.4f} ms")
     print(f"  {name} {shape}: kernel {row['ms']:.4f} ms "
           f"({bound / row['ms'] * 100:.1f}% of its bound), plain "
-          f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} "
-          f"ms, bound {bound:.4f} ms, max|err| {err:.3g}", flush=True)
+          f"{row['plain_ms']:.4f} ms, library {lib_txt}, bound "
+          f"{bound:.4f} ms, max|err| {err:.3g}", flush=True)
     return row
 
 
@@ -652,14 +672,20 @@ DISPATCH = {
     "gn_apply": "gn_apply",
     "gn_bwd_reduce": "gn_bwd_reduce",
     "gn_bwd_dx": "gn_bwd_dx",
+    "gn_stats_sums": "gn_sums",
+    "gn_finalize": "gn_finalize",
 }
 GN_KERNELS = ["gn_stats", "gn_apply", "gn_bwd_reduce", "gn_bwd_dx"]
+# the sharded GroupNorm's modes and kernel (phase 23); gn_bwd_dx_denom is
+# gn_bwd_dx's dispatcher called with ``denom``
+GN_SHARD_KERNELS = ["gn_stats_sums", "gn_finalize", "gn_bwd_dx_denom"]
 
 
 def dispatch_module(kernel):
     from unetsulc_tpu_torch.ops import conv_fused, groupnorm
 
-    return groupnorm if kernel in GN_KERNELS else conv_fused
+    return (groupnorm if kernel in GN_KERNELS or kernel in GN_SHARD_KERNELS
+            else conv_fused)
 
 
 def dispatcher(kernel):
@@ -699,6 +725,8 @@ def plain_fns():
         "gn_apply": gn.gn_apply_plain,
         "gn_bwd_reduce": gn.gn_bwd_reduce_plain,
         "gn_bwd_dx": gn.gn_bwd_dx_plain,
+        "gn_stats_sums": gn.gn_sums_plain,
+        "gn_finalize": gn.gn_finalize_plain,
     }
 
 
@@ -1112,7 +1140,9 @@ def kernel_class(key):
         return "E"
     if "max_pool_buf_fwd_kernel" in key:
         return "B"
-    for name in GN_KERNELS:
+    if "gn_stats_kernel" in key and ", true>" in key:
+        return "gn_stats_sums"
+    for name in GN_KERNELS + ["gn_finalize"]:
         if f"{name}_kernel" in key:
             return name
     return "plain"
@@ -2441,7 +2471,7 @@ def plain_guard(calls):
         "conv3x3x3_wgrad_plain", "max_pool_buf_plain",
         "max_pool_buf_bwd_plain")] + [(groupnorm, n) for n in (
             "gn_stats_plain", "gn_apply_plain", "gn_bwd_reduce_plain",
-            "gn_bwd_dx_plain")]
+            "gn_bwd_dx_plain", "gn_sums_plain", "gn_finalize_plain")]
 
     def cuda_in(v):
         if isinstance(v, torch.Tensor):
@@ -2715,18 +2745,18 @@ def hold_dp(single_out, dp_out, m_single, m_dp, what):
     return False
 
 
-def timed_steps(step, state, args):
-    """3 warm-up and 20 timed steps, losses on the device and one fetch:
-    (ms/step, peak GB, loss curve)."""
+def timed_steps(step, state, args, steps=STEPS):
+    """3 warm-up and ``steps`` timed steps, losses on the device and one
+    fetch: (ms/step, peak GB, loss curve)."""
     losses = [step(state, *args)[0] for _ in range(WARMUP)]
     losses[-1].item()
     torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
-    for _ in range(STEPS):
+    for _ in range(steps):
         losses.append(step(state, *args)[0])
     curve = torch.stack(losses).cpu()
     dt = time.perf_counter() - t
-    return dt / STEPS * 1e3, torch.cuda.max_memory_allocated() / 1e9, curve
+    return dt / steps * 1e3, torch.cuda.max_memory_allocated() / 1e9, curve
 
 
 def phase_dp_train(dev):
@@ -3012,6 +3042,308 @@ def phase_train_parts(seq):
     return dict(parts=parts, native_ms=nat, numpy_ms=npy)
 
 
+# ---------------------------------------------------------------------------
+# the spatially sharded non-fused step (phase 23)
+# ---------------------------------------------------------------------------
+
+HALO_SPACES = (2, 3)
+# shard slabs of the flagship's levels at space 2 (rows of the longer
+# shard, Y = Z extent, the level's widest GroupNorm)
+GN_SHARD_SLABS = [(48, 96, 64), (25, 49, 128), (13, 25, 256), (7, 13, 512)]
+# group_norm_sharded against the single-device kernels: (extent, C, rows
+# of each shard)
+GN_SHARDED_CASES = [(96, 64, [48, 48]), (49, 128, [16, 16, 17])]
+HALO_STEPS = 10
+HALO_COVER = ("one 96^3 non-fused flagship sharded training step, space 2, "
+              "one card")
+
+
+def halo_gn_launches(n):
+    """GroupNorm launches per sharded non-fused train step of the flagship
+    at 96^3 over ``n`` shards, from the partition: per GroupNorm layer one
+    sums launch, one gn_apply, one gn_bwd_reduce and one gn_bwd_dx_denom
+    on each shard holding rows of its level (parallel.halo.level_rows),
+    one gn_finalize on the home shard; no gn_stats, no gn_bwd_dx."""
+    from unetsulc_tpu_torch.parallel.halo import level_rows
+
+    live = sum(sum(hi > lo for lo, hi in level_rows(ext, n))
+               for _, ext, _ in GN_LAYERS)
+    return dict(gn_stats_sums=live, gn_finalize=len(GN_LAYERS),
+                gn_apply=live, gn_bwd_reduce=live, gn_bwd_dx_denom=live)
+
+
+def gn_close(got, want, what):
+    """f32 against f32: rtol 1e-5, atol 1e-5 of the largest |want| (f32
+    sums over the shards in another order). Returns the max |error|."""
+    scale = want.abs().max().item()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * scale,
+                               msg=lambda m: f"{what}: {m}")
+    return (got - want).abs().max().item()
+
+
+def phase_gn_shard_checks(dev):
+    """The sharded GroupNorm's kernel modes against their plain versions
+    at the flagship's space-2 shard slabs (bf16 and f32): gn_stats_sums'
+    sums rtol 1e-4 (phase 12's bar for the statistics), gn_finalize's mean
+    and inv from the plain sums rtol 1e-4, gn_bwd_dx with the whole
+    level's count as kernel C; then ``group_norm_sharded`` (f32, 96^3 x
+    64 in 48 + 48 rows, 49^3 x 128 in 16 + 16 + 17) forward and backward
+    against the single-device GroupNorm kernels at rtol 1e-5."""
+    from unetsulc_tpu_torch.ops import groupnorm as gn
+
+    gen = torch.Generator(device=dev).manual_seed(23)
+    worst = {k: 0.0 for k in GN_SHARD_KERNELS}
+    for rows, yz, c in GN_SHARD_SLABS:
+        for dtype in (torch.bfloat16, torch.float32):
+            what = f"{rows}x{yz}x{yz} x {c} {str(dtype)[6:]}"
+            x, g, scale, _ = gn_inputs(1, rows * yz * yz, c, dtype, gen, dev)
+            sk, sp = gn.gn_sums(x, 32), gn.gn_sums_plain(x, 32)
+            sync()
+            for k, p, name in zip(sk, sp, ("sum", "sum of squares")):
+                torch.testing.assert_close(
+                    k, p, rtol=1e-4, atol=0,
+                    msg=lambda m: f"gn_stats_sums {name} ({what}): {m}")
+            err = {"gn_stats_sums": max((k - p).abs().max().item()
+                                        for k, p in zip(sk, sp))}
+            count = 2 * rows * yz * yz * (c // 32)  # a whole level's
+            mk = gn.gn_finalize(*sp, count, 1e-5)
+            mp = gn.gn_finalize_plain(*sp, count, 1e-5)
+            sync()
+            for k, p in zip(mk, mp):
+                torch.testing.assert_close(
+                    k, p, rtol=1e-4, atol=0,
+                    msg=lambda m: f"gn_finalize ({what}): {m}")
+            err["gn_finalize"] = max((k - p).abs().max().item()
+                                     for k, p in zip(mk, mp))
+            red = gn.gn_bwd_reduce_plain(x, g, *mp, scale)
+            dk = gn.gn_bwd_dx(x, g, *mp, scale, red[2], red[3], denom=count)
+            dp = gn.gn_bwd_dx_plain(x, g, *mp, scale, red[2], red[3],
+                                    denom=count)
+            sync()
+            check(dk.dtype == x.dtype, f"gn_bwd_dx_denom dtype ({what})")
+            err["gn_bwd_dx_denom"] = check_grad(dk, dp, 2 ** -7,
+                                                f"gn_bwd_dx_denom ({what})")
+            for k, v in err.items():
+                worst[k] = max(worst[k], v)
+            print(f"  sharded GN modes {what}: "
+                  + ", ".join(f"{k} {v:.3g}" for k, v in err.items()),
+                  flush=True)
+    for ext, c, sizes in GN_SHARDED_CASES:
+        x, g, scale, bias = (t.float() for t in gn_inputs(
+            1, ext ** 3, c, torch.float32, gen, dev))
+        x5, g5 = x.view(1, ext, ext, ext, c), g.view(1, ext, ext, ext, c)
+        sc, bi = scale.clone().requires_grad_(True), bias.clone()
+        bi.requires_grad_(True)
+        xa = x5.clone().requires_grad_(True)
+        want = gn.group_norm(xa, 32, sc, bi)
+        want.backward(g5)
+        ref = [t.grad.clone() for t in (xa, sc, bi)]
+        sc.grad = bi.grad = None
+        xs = [t.clone().requires_grad_(True)
+              for t in torch.split(x5, sizes, dim=1)]
+        outs = gn.group_norm_sharded(xs, 32, sc, bi)
+        torch.autograd.backward(outs, list(torch.split(g5, sizes, dim=1)))
+        sync()
+        what = f"group_norm_sharded {ext}^3 x {c} in {sizes}"
+        errs = [gn_close(torch.cat(outs, 1).detach(), want.detach(),
+                         f"{what} forward"),
+                gn_close(torch.cat([t.grad for t in xs], 1), ref[0],
+                         f"{what} dx"),
+                gn_close(sc.grad, ref[1], f"{what} dscale"),
+                gn_close(bi.grad, ref[2], f"{what} dbias")]
+        print(f"  {what} against the single-device kernels (f32): forward "
+              f"{errs[0]:.3g}, dx {errs[1]:.3g}, dscale {errs[2]:.3g}, "
+              f"dbias {errs[3]:.3g}", flush=True)
+    return worst
+
+
+def hold_steps(ref, got, where):
+    """A sharded step's (loss, counts, gradients) against the
+    single-device step's at phase 9's bars; returns the distances."""
+    (l1, c1, g1), (l2, c2, g2) = ref, got
+    d = param_distances(g2, g1)
+    gcos = global_cosine(g2, g1)
+    c, cn, e, en = worst(d)
+    print(f"  {where}: loss {l2:.6f} vs single-device {l1:.6f} (rel "
+          f"{abs(l2 - l1) / abs(l1):.2e}); confusion counts equal: "
+          f"{bool(torch.equal(c1, c2))}; all-parameter cosine {gcos:.6f}; "
+          f"worst cosine {1.0 - c:.6f} ({cn}); worst max|dg| / max|g| "
+          f"{e:.4f} ({en})", flush=True)
+    check(abs(l2 - l1) <= LOSS_RTOL * abs(l1), f"{where}: loss differs")
+    check(gcos >= GLOBAL_COS, f"{where}: all-parameter cosine {gcos}")
+    check(1.0 - c >= GRAD_COS, f"{where}: gradient cosine {1.0 - c}")
+    check(e <= GRAD_ERR, f"{where}: gradient error {e}")
+    return dict(loss_rel=abs(l2 - l1) / abs(l1), global_cos=gcos,
+                cos=1.0 - c, err=e)
+
+
+def phase_halo_train(dev):
+    """The sharded non-fused step (``make_train_step_sp_halo``, every
+    shard on this card) of phase 14's model on phase 9's batch at space 2
+    and 3 (levels 96, 49, 25, 13 split 48/48, 24/25, 12/13, 6/7 and
+    32/32/32, 16/16/17, 8/8/9, 4/4/5 rows), against the single-device
+    non-fused step from the same state at phase 9's bars; GroupNorm
+    launches per step (counts zeroed just before) against the partition's;
+    no plain version on a CUDA tensor; 3 warm-up and 10 timed steps of
+    each beside the single-device step's, peak memory; a falling loss; a
+    profile of one sharded step; the sharded eval step; then one f32 step at space 2 of the 'crg'
+    interpolating flagship (f32 on the card: the non-fused path) against
+    its single-device step, and ``graft_entry.dryrun_multichip(2)``.
+    Returns the runs and every GroupNorm launch of one space-2 step
+    (recorded, lr 0)."""
+    from unetsulc_tpu_torch import kernels
+    from unetsulc_tpu_torch.graft_entry import dryrun_multichip
+    from unetsulc_tpu_torch.models.unet3d import UNet3D
+    from unetsulc_tpu_torch.parallel import shard_x
+    from unetsulc_tpu_torch.train.step import (TrainState, make_train_step,
+                                               make_eval_step_sp_halo,
+                                               make_train_step_sp_halo)
+
+    x, labels = make_batch(dev)
+    model = nonfused_model(dev)
+    single = make_train_step(model, CLASSES, momentum=0.9)
+    ref = step_grads(model, single, (x, labels))
+    runs, bad, calls = {}, [], []
+    for n in HALO_SPACES:
+        mesh = sp_mesh(n)
+        xs, ls = shard_x(x, mesh), shard_x(labels, mesh)
+        step = make_train_step_sp_halo(model, CLASSES, mesh, momentum=0.9)
+        got = step_grads(model, step, (xs, ls))
+        held = hold_steps(ref, got, f"space {n}, bf16 interpolate=False")
+        kernels.reset_launch_counts()
+        with plain_guard(bad):
+            step(TrainState.create(model, lr=0.0), xs, ls)
+        sync()
+        launches = {k: v for k, v in kernels.launch_counts.items() if v}
+        want = halo_gn_launches(n)
+        print(f"  space {n}: launches per sharded non-fused train step: "
+              f"{launches} (the partition's: {want})", flush=True)
+        check(launches == want, f"space {n}: launches {launches}, expected "
+              f"{want}")
+        check(not bad, f"space {n}: plain versions got CUDA tensors: "
+              f"{sorted(set(bad))}")
+        el, ec = make_eval_step_sp_halo(model, CLASSES, mesh)(xs, ls)
+        sync()
+        n_valid = int((labels != -1).sum().item())
+        check(bool(torch.isfinite(el)), f"space {n}: non-finite eval loss")
+        check(int(ec[0].sum() + ec[2].sum()) == n_valid,
+              f"space {n}: eval counts do not cover the labelled voxels")
+        runs[n] = dict(launches=launches, eval_loss=el.item(), **held,
+                       args=(xs, ls))
+        del step
+    # timing: the single-device step and each space in one call, from the
+    # same initial state (a fresh model each)
+    single_ms, single_gb, _ = timed_steps(
+        single, TrainState.create(model, lr=TRAIN_LR), (x, labels),
+        HALO_STEPS)
+    del model, single
+    for n in HALO_SPACES:
+        m = nonfused_model(dev)
+        mesh = sp_mesh(n)
+        step = make_train_step_sp_halo(m, CLASSES, mesh, momentum=0.9)
+        state, args = TrainState.create(m, lr=TRAIN_LR), runs[n].pop("args")
+        with plain_guard(bad):
+            ms, gb, curve = timed_steps(step, state, args, HALO_STEPS)
+        check(not bad, f"space {n}: plain versions got CUDA tensors")
+        check(bool(torch.isfinite(curve).all()), f"space {n}: non-finite loss")
+        check(curve[-1].item() < curve[0].item(),
+              f"space {n}: loss did not fall")
+        print(f"sharded non-fused train step 96^3 flagship bf16 "
+              f"(interpolate=False), space {n} on one card: {ms:.2f} ms/step, "
+              f"peak device memory {gb:.2f} GB, against the single-device "
+              f"non-fused step {single_ms:.2f} ms/step, {single_gb:.2f} GB "
+              f"({HALO_STEPS} steps after {WARMUP} warm-up each)", flush=True)
+        print("  loss by step: " + ", ".join(f"{v:.4f}" for v in
+                                             curve.tolist()), flush=True)
+        runs[n].update(step_ms=ms, peak_gb=gb, single_ms=single_ms,
+                       single_gb=single_gb)
+        profile_step(lambda: step(state, *args),
+                     f"one space-{n} sharded non-fused step", 10)
+        del m, step, state, args
+    # f32 on the card: the 'crg' interpolating flagship takes this route
+    m32 = UNet3D(in_channels=1, out_channels=CLASSES, init_channel_number=64,
+                 compute_dtype=torch.float32, device=dev, seed=0)
+    check(not m32.fused_config(), "an f32 model on the card is not fused")
+    mesh = sp_mesh(2)
+    ref32 = step_grads(m32, make_train_step(m32, CLASSES, momentum=0.9),
+                       (x, labels))
+    got32 = step_grads(m32, make_train_step_sp_halo(m32, CLASSES, mesh,
+                                                    momentum=0.9),
+                       (shard_x(x, mesh), shard_x(labels, mesh)))
+    runs["f32"] = hold_steps(ref32, got32,
+                             "space 2, f32 'crg' interpolating flagship")
+    del m32, ref32, got32
+    t = time.perf_counter()
+    dryrun_multichip(2)
+    sync()
+    runs["dryrun_s"] = time.perf_counter() - t
+    # last, as its recorded operands stay allocated: every GroupNorm
+    # launch of one space-2 step
+    model, mesh = nonfused_model(dev), sp_mesh(HALO_SPACES[0])
+    with recording(calls, ["gn_stats_sums", "gn_finalize", "gn_bwd_dx"]):
+        make_train_step_sp_halo(model, CLASSES, mesh)(
+            TrainState.create(model, lr=0.0), shard_x(x, mesh),
+            shard_x(labels, mesh))
+    sync()
+    return runs, calls
+
+
+def gn_shard_rows(calls):
+    """Every recorded launch of the sharded GroupNorm's modes in one
+    space-2 step, held to its plain version (phase 23's bars) and timed
+    against its bound; no PyTorch call computes a shard's sums, the
+    finalize or dx with another shard's sums, so no library time."""
+    plain_of = plain_fns()
+    rows = {k: [] for k in GN_SHARD_KERNELS}
+    with torch.no_grad():
+        for name, args, kw in calls:
+            if name == "gn_bwd_dx":
+                check(kw.get("denom") is not None,
+                      "the sharded step launched gn_bwd_dx without denom")
+                name = "gn_bwd_dx_denom"
+            fn = dispatcher("gn_bwd_dx" if name == "gn_bwd_dx_denom"
+                            else name)
+            plain = plain_of["gn_bwd_dx" if name == "gn_bwd_dx_denom"
+                             else name]
+            kern = lambda: fn(*args, **kw)  # noqa: E731
+            ref = lambda: plain(*args, **kw)  # noqa: E731
+            out_k, out_p = kern(), ref()
+            sync()
+            if name == "gn_bwd_dx_denom":
+                x3 = args[0]
+                err = check_grad(out_k, out_p, 2 ** -7, f"{name}")
+                bound = gn_bound("gn_bwd_dx", x3, int(args[2].shape[1]))
+                shape = f"{int(x3.shape[2])} @{int(x3.shape[1])} voxels"
+            else:
+                for k, p in zip(out_k, out_p):
+                    torch.testing.assert_close(
+                        k, p, rtol=1e-4, atol=0,
+                        msg=lambda m: f"{name}: {m}")
+                err = max((k - p).abs().max().item()
+                          for k, p in zip(out_k, out_p))
+                if name == "gn_stats_sums":
+                    x3 = args[0]
+                    bound = gn_bound("gn_stats", x3, int(args[1]))
+                    shape = f"{int(x3.shape[2])} @{int(x3.shape[1])} voxels"
+                else:
+                    # reads sums and squares, writes mean and inv: (N, G)
+                    # f32 each; ~6 operations per unit
+                    units = args[0].numel()
+                    bound = max(16.0 * units / PEAK_BYTES,
+                                6.0 * units / PEAK_F32_FLOPS) * 1e3
+                    shape = f"{units} units"
+            rows[name].append(timed_row(name, shape, kern, ref, None, bound,
+                                        err))
+    for name, rs in rows.items():
+        ms = sum(r["ms"] for r in rs)
+        bound = sum(r["bound_ms"] for r in rs)
+        print(f"  {name}: {len(rs)} launches per space-2 step, {ms:.4f} ms, "
+              f"{bound / ms * 100:.1f}% of its bound ({bound:.4f} ms)",
+              flush=True)
+    return rows
+
+
+
 def main():
     if not torch.cuda.is_available():
         print("CUDA is not available: chip_smoke.py needs an NVIDIA GPU",
@@ -3081,6 +3413,14 @@ def main():
     dp_run = phase_dp_train(dev)
     folds_run = phase_fold_parallel(experiments["FlagshipCV"], dev)
     parts_run = phase_train_parts(experiments["FlagshipCV"])
+    print("phase 23: the sharded GroupNorm modes and the sharded non-fused "
+          "step (space 2 and 3, one card)", flush=True)
+    t23 = time.time()
+    err_gn_shard = phase_gn_shard_checks(dev)
+    halo_runs, gn_calls = phase_halo_train(dev)
+    rows.update(gn_shard_rows(gn_calls))
+    del gn_calls
+    print(f"  phase 23 took {time.time() - t23:.1f} s", flush=True)
 
     gn_src = "unetsulc_tpu_torch/csrc/group_norm.cu"
     gn_cover = "one 96^3 non-fused flagship training step"
@@ -3122,6 +3462,17 @@ def main():
         "conv3x3x3_wgrad_halo": ("unetsulc_tpu_torch/csrc/conv3x3x3_wgrad.cu",
                                  "unetsulc_tpu/ops/conv_pallas.py:1090",
                                  "operations", sp_cover),
+        # the sharded GroupNorm (phase 23): the stats kernel's sums and its
+        # finalize, the dx kernel with the global count
+        "gn_stats_sums": (gn_src, "unetsulc_tpu/ops/attic/"
+                          "groupnorm_pallas_chunked.py:44", "bytes",
+                          HALO_COVER),
+        "gn_finalize": (gn_src, "unetsulc_tpu/ops/attic/"
+                        "groupnorm_pallas_chunked.py:44", "bytes",
+                        HALO_COVER),
+        "gn_bwd_dx_denom": (gn_src, "unetsulc_tpu/ops/attic/"
+                            "groupnorm_pallas_chunked.py:183", "bytes",
+                            HALO_COVER),
     }
     # launches on the main paths: A and B on the fused labelling path
     # (phase 5), C, D and E per fused training step (phase 9), gn_stats and
@@ -3135,7 +3486,9 @@ def main():
                    **{k: nf_launches[k] for k in
                       ("gn_bwd_reduce", "gn_bwd_dx")},
                    **{k: sp_runs[SPACES[0]]["launches"][k]
-                      for k in HALO_KERNELS}}
+                      for k in HALO_KERNELS},
+                   **{k: halo_runs[HALO_SPACES[0]]["launches"][k]
+                      for k in GN_SHARD_KERNELS}}
     line = []
     for name, (src, replaces, bound_by, cover) in meta.items():
         rs = rows[name]
@@ -3143,11 +3496,17 @@ def main():
         if name == "conv3x3x3_fwd":
             err = max(err, err_a)
         err = max(err, err_bwd.get(name, 0.0), err_gn.get(name, 0.0),
-                  err_halo.get(name, 0.0))
+                  err_halo.get(name, 0.0), err_gn_shard.get(name, 0.0))
         per_step = (nf_launches if name in GN_KERNELS else
                     sp_runs[SPACES[0]]["launches"] if name in HALO_KERNELS
-                    else train_launches)
+                    else halo_runs[HALO_SPACES[0]]["launches"]
+                    if name in GN_SHARD_KERNELS else train_launches)
         extra = {}
+        if name in GN_SHARD_KERNELS:
+            extra = dict(launches_space3=halo_runs[3]["launches"][name],
+                         library_note="no PyTorch call computes a shard's "
+                         "sums, the finalize alone, or dx from other "
+                         "shards' sums")
         if name in HALO_KERNELS:
             extra = dict(launches_space4=sp_runs[4]["launches"][name],
                          nohalo_ms=sum(r["nohalo_ms"] for r in rs))
@@ -3168,7 +3527,8 @@ def main():
             "plain_ms": sum(r["plain_ms"] for r in rs),
             "bound_ms": sum(r["bound_ms"] for r in rs),
             "bound_by": bound_by,
-            "library_ms": sum(r["library_ms"] for r in rs),
+            "library_ms": (None if rs[0]["library_ms"] is None
+                           else sum(r["library_ms"] for r in rs)),
             "timed_launches": len(rs),
             "times_cover": cover,
         })
@@ -3213,7 +3573,14 @@ def main():
           f"fold_parallel 2 CV main() {folds_run['wall_s']:.1f} s against "
           f"{folds_run['seq_wall_s']:.1f} s; voxelizer native "
           f"{parts_run['native_ms']:.2f} ms against numpy "
-          f"{parts_run['numpy_ms']:.2f} ms per volume"
+          f"{parts_run['numpy_ms']:.2f} ms per volume; sharded non-fused "
+          "train step (one card) "
+          + ", ".join(f"space {n} {halo_runs[n]['step_ms']:.2f} ms "
+                      f"({halo_runs[n]['peak_gb']:.2f} GB)"
+                      for n in HALO_SPACES)
+          + f" against the single-device non-fused step "
+          f"{halo_runs[2]['single_ms']:.2f} ms "
+          f"({halo_runs[2]['single_gb']:.2f} GB)"
           + f"; total script {time.time() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": line}), flush=True)
     print(card_line(), flush=True)

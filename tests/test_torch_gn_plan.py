@@ -16,7 +16,12 @@ channel order; for the backward reduce dscale and dbias over the samples in
 order) replayed in float32 on small slabs gives the plain version's result:
 ``gn_stats_plain``'s mean and inv within rtol 1e-5, ``gn_bwd_reduce_plain``'s
 within rtol 1e-5 and atol 1e-6 of the largest magnitude (two float32
-orders of the same sums), the same bits in two runs.
+orders of the same sums), the same bits in two runs. The sharded
+GroupNorm's modes run the same plan: ``gn_stats_sums``' replayed sums are
+``gn_sums_plain``'s within rtol 1e-5, and a slab's three uneven row
+ranges, each on its own plan, added in shard order and finalized over the
+global count as ``gn_finalize`` does, give ``gn_stats_plain`` of the
+whole slab within rtol 1e-5.
 """
 
 import numpy as np
@@ -190,16 +195,15 @@ def _fold(cols):
     return out
 
 
-def _replay_stats(x, groups, eps, sms, dtype):
-    """(mean, inv) in float32, added in the order that gn_stats adds
-    them."""
+def _replay_sums(x, groups, sms, dtype):
+    """(sum x, sum x^2) in float32, added in the order that gn_stats and
+    its sums mode (gn_stats_sums) add them."""
     n, s, c = x.shape
     cg = c // groups
     bs, lanes, _, _ = layout.gn_stats_plan(n, s, c, groups, dtype, sms)
     partial = _partials(x, x * x, bs, lanes)
-    denom = np.float32(s * cg)
-    mean = np.zeros((n, groups), np.float32)
-    inv = np.zeros((n, groups), np.float32)
+    sums = np.zeros((n, groups), np.float32)
+    sq = np.zeros((n, groups), np.float32)
     for u in range(n * groups):
         # unit u: both sums of group u % G of sample u // G
         nn, gi = divmod(u, groups)
@@ -210,11 +214,27 @@ def _replay_stats(x, groups, eps, sms, dtype):
         for ch in range(cg):
             tx = np.float32(tx + nsum[ch])
             tq = np.float32(tq + nsum[cg + ch])
-        mu = np.float32(tx / denom)
-        var = np.float32(np.float32(tq / denom) - np.float32(mu * mu))
-        mean[nn, gi] = mu
-        inv[nn, gi] = np.float32(1) / np.sqrt(var + np.float32(eps))
-    return mean, inv
+        sums[nn, gi], sq[nn, gi] = tx, tq
+    return sums, sq
+
+
+def _replay_finalize(sums, sq, count, eps):
+    """(mean, inv) from the sums over ``count`` elements: gn_stats' tail,
+    and gn_finalize's."""
+    denom = np.float32(count)
+    mean = (sums / denom).astype(np.float32)
+    var = ((sq / denom).astype(np.float32)
+           - (mean * mean).astype(np.float32)).astype(np.float32)
+    return mean, (np.float32(1) / np.sqrt(var + np.float32(eps))).astype(
+        np.float32)
+
+
+def _replay_stats(x, groups, eps, sms, dtype):
+    """(mean, inv) in float32, added in the order that gn_stats adds
+    them."""
+    _, s, c = x.shape
+    return _replay_finalize(*_replay_sums(x, groups, sms, dtype),
+                            s * (c // groups), eps)
 
 
 def _replay_reduce(x, g, mean, inv, scale, sms, dtype):
@@ -295,3 +315,39 @@ def test_reduce_order_gives_the_plain_result(n, s, c, groups, dtype, sms):
         w = w.numpy()
         np.testing.assert_allclose(a, w, rtol=1e-5,
                                    atol=1e-6 * float(np.abs(w).max()))
+
+
+@pytest.mark.parametrize("n,s,c,groups,dtype,sms", REPLAY_CASES,
+                         ids=REPLAY_IDS)
+def test_sums_mode_order_gives_the_plain_sums(n, s, c, groups, dtype, sms):
+    """gn_stats_sums: gn_stats' plan and fold with the finalize left out,
+    its sums within rtol 1e-5 of ``gn_sums_plain``'s, the same bits in
+    two runs."""
+    x, _, _ = _replay_inputs(n, s, c, dtype)
+    want = gn.gn_sums_plain(x, groups)
+    xf = x.float().numpy()
+    got = _replay_sums(xf, groups, sms, dtype)
+    again = _replay_sums(xf, groups, sms, dtype)
+    for a, b, w in zip(got, again, want):
+        assert a.dtype == np.float32 and a.tobytes() == b.tobytes()
+        np.testing.assert_allclose(a, w.numpy(), rtol=1e-5)
+
+
+@pytest.mark.parametrize("n,s,c,groups,dtype,sms", REPLAY_CASES,
+                         ids=REPLAY_IDS)
+def test_sharded_sums_finalize_to_the_whole_slab(n, s, c, groups, dtype, sms):
+    """A slab cut into three uneven row ranges (the sharded GroupNorm's
+    shards): each range's sums on its own plan, added in shard order in
+    float32 and finalized over the global count (gn_finalize), give
+    ``gn_stats_plain`` of the whole slab within rtol 1e-5."""
+    x, _, _ = _replay_inputs(n, s, c, dtype)
+    xf = x.float().numpy()
+    cuts = [0, s // 3, s // 3 + s // 2, s]
+    parts = [_replay_sums(xf[:, a:b], groups, sms, dtype)
+             for a, b in zip(cuts, cuts[1:])]
+    sums, sq = parts[0]
+    for ps, pq in parts[1:]:
+        sums, sq = (sums + ps).astype(np.float32), (sq + pq).astype(np.float32)
+    got = _replay_finalize(sums, sq, s * (c // groups), 1e-5)
+    for a, w in zip(got, gn.gn_stats_plain(x, groups, 1e-5)):
+        np.testing.assert_allclose(a, w.numpy(), rtol=1e-5)

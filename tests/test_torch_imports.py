@@ -23,10 +23,12 @@ FORBIDDEN = re.compile(
 )
 
 
-# the parallel and native-runtime modules, held to the rule by name as well
+# the parallel and native-runtime modules and the driver entry points,
+# held to the rule by name as well
 PARALLEL = ["unetsulc_tpu_torch.parallel", "unetsulc_tpu_torch.parallel.mesh",
             "unetsulc_tpu_torch.parallel.sp_fused",
-            "unetsulc_tpu_torch.runtime"]
+            "unetsulc_tpu_torch.parallel.halo",
+            "unetsulc_tpu_torch.runtime", "unetsulc_tpu_torch.graft_entry"]
 # a path component naming the JAX package's directory
 JAX_DIR = re.compile(r"(^|[/\\])unetsulc_tpu([/\\]|$)")
 CITATION = re.compile(r"\.py:\d+$")
@@ -55,12 +57,14 @@ def test_port_imports_without_jax():
 
 def test_source_scan_covers_parallel():
     """The source scan below reads the ``parallel`` and ``runtime``
-    packages' files."""
+    packages' files and the driver entry points."""
     scanned = {str(p.relative_to(ROOT)) for p in SOURCES}
     assert {"unetsulc_tpu_torch/parallel/__init__.py",
             "unetsulc_tpu_torch/parallel/mesh.py",
             "unetsulc_tpu_torch/parallel/sp_fused.py",
-            "unetsulc_tpu_torch/runtime/__init__.py"} <= scanned
+            "unetsulc_tpu_torch/parallel/halo.py",
+            "unetsulc_tpu_torch/runtime/__init__.py",
+            "unetsulc_tpu_torch/graft_entry.py"} <= scanned
 
 
 def _code_strings(tree):

@@ -446,7 +446,7 @@ def test_evaluate_and_both_hemispheres(cohort_dir, tmp_path):
 # ---------------------------------------------------------------------------
 
 
-def test_route_steps_records_and_raises(cohort_dir, tmp_path):
+def test_route_steps_records_and_raises(cohort_dir, tmp_path, capsys):
     from unetsulc_tpu_torch.method.training import _route_steps
 
     def model(**kw):
@@ -462,10 +462,19 @@ def test_route_steps_records_and_raises(cohort_dir, tmp_path):
     assert mesh.space == 2 and all(d.type == "cpu" for d in mesh.devices)
     nonfused = model(interpolate=False)
     assert _route_steps(nonfused, 3, 0.9)[3]["kernels"] == "nonfused"
-    with pytest.raises(NotImplementedError, match="item 6"):
-        _route_steps(nonfused, 3, 0.9, spatial=2)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        _route_steps(model(), 3, 0.9, spatial=3)
+    # the requests the sharded fused pipeline cannot take: the sharded
+    # non-fused step, where the JAX package takes pjit_auto_spmd
+    for m, spatial, dp in ((nonfused, 2, 1), (model(), 3, 1),
+                           (model(dropout=0.1), 2, 2)):
+        train, evaluate, mesh, rec = _route_steps(m, 3, 0.9, dp=dp,
+                                                  spatial=spatial)
+        assert rec == {"step": "sp_halo", "kernels": "nonfused",
+                       "data_parallel": dp, "spatial_parallel": spatial,
+                       "sp_fallback": True}
+        assert (mesh.data, mesh.space) == (dp, spatial)
+        assert train.__qualname__.startswith("make_train_step_sp_halo")
+        assert evaluate.__qualname__.startswith("make_eval_step_sp_halo")
+        assert "using the sharded non-fused path" in capsys.readouterr().out
     _, _, mesh, rec = _route_steps(model(), 3, 0.9, dp=2)
     assert rec["step"] == "dp_mesh" and rec["data_parallel"] == 2
     assert mesh.data == 2 and mesh.space == 1

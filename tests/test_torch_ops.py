@@ -201,6 +201,13 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         kernels.gn_bwd_reduce(x3, x3, st, st, c8)
     with pytest.raises(ValueError, match="CUDA"):
         kernels.gn_bwd_dx(x3, x3, st, st, c8, st, st)
+    # the sharded GroupNorm's modes and finalize
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.gn_stats_sums(x3, 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.gn_finalize(st, st, 40, 1e-5)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.gn_bwd_dx(x3, x3, st, st, c8, st, st, denom=40)
     # the probe kernels take a device, not tensors: the CPU raises
     with pytest.raises(ValueError, match="CUDA"):
         kernels.mxu_dot(64, 64, 40, 2, "cpu")
@@ -212,5 +219,6 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         "conv3x3x3_fwd", "conv3x3x3_dx", "conv3x3x3_wgrad",
         "conv3x3x3_fwd_halo", "conv3x3x3_dx_halo", "conv3x3x3_wgrad_halo",
         "max_pool_buf_fwd", "max_pool_buf_bwd", "gn_stats", "gn_apply",
-        "gn_bwd_reduce", "gn_bwd_dx", "mxu_dot", "mxu_rdot", "slab_build"}
+        "gn_bwd_reduce", "gn_bwd_dx", "gn_stats_sums", "gn_finalize",
+        "gn_bwd_dx_denom", "mxu_dot", "mxu_rdot", "slab_build"}
     assert not any(kernels.launch_counts.values())

@@ -16,6 +16,21 @@
 //                  with xhat = (x - mean_c) * inv_c, dxhat = g * scale;
 //   gn_bwd_dx      dx = inv/D * (D * dxhat - sdx - xhat * sdxx), x's dtype.
 //
+// Two modes and one small kernel serve a GroupNorm whose volume is split
+// along X over shards (parallel/halo.py, the sharded non-fused step; the
+// TPU package leaves that case to XLA's all-reduced statistics):
+//
+//   gn_stats_sums  gn_stats' launch and fold with its finalize left out:
+//                  per (n, group) the sums of x and of x^2 (N, G) f32, the
+//                  same bits in every run;
+//   gn_finalize    one block: the shards' added sums and the global count
+//                  D -> mean_g, inv_g with gn_stats' own tail arithmetic;
+//   gn_bwd_dx_denom  gn_bwd_dx with D given (the global count) instead of
+//                  S * C / G of the shard.
+//
+// Sums and not (mean, inv) leave a shard, because rebuilding the sums from
+// rsqrt is lossy and cancels where var << mean^2.
+//
 // What bounds them on this card: bytes. Stats read x once; apply reads x
 // and writes out; the backward reduce reads x and g; dx reads x and g and
 // writes dx. A few operations per byte; at 96^3 x 64 bf16 one pass over x
@@ -62,7 +77,8 @@
 // gn_stats folds F = min(N G, max(1, min(B, SMs) / 2)) units, unit u the
 // sums of x and of x^2 of group u % G of sample u / G (2 C / G columns);
 // then per unit the group sums in channel order, mean = sum x / D and
-// inv = rsqrt(sum x^2 / D - mean^2 + eps).
+// inv = rsqrt(sum x^2 / D - mean^2 + eps) (gn_stats_sums: the two sums
+// themselves). gn_finalize is that tail alone, one thread per unit.
 //
 // gn_bwd_reduce folds F = min(2 G, max(1, min(B, SMs) / 2)) units, unit u
 // the sums of g * xhat (u even) or of g (u odd) of group u / 2 (C / G
@@ -427,12 +443,24 @@ __device__ __forceinline__ void fold_columns(const float* p, int bs, int c,
   }
 }
 
-template <typename T>
+// mean and inv of one unit from its sums: gn_stats' tail, and gn_finalize
+__device__ __forceinline__ void finalize_unit(float s, float q, float denom,
+                                              float eps, float* mean,
+                                              float* inv) {
+  const float mu = __fdiv_rn(s, denom);
+  const float var = __fsub_rn(__fdiv_rn(q, denom), __fmul_rn(mu, mu));
+  *mean = mu;
+  *inv = rsqrtf(__fadd_rn(var, eps));
+}
+
+// SUMS (gn_stats_sums): out0, out1 get the sums of x and of x^2; else
+// (gn_stats) mean and inv
+template <typename T, bool SUMS>
 __global__ void __launch_bounds__(THREADS + 32, 1)
     gn_stats_kernel(const T* __restrict__ x, Slab sl, RedPlan pl, float eps,
                     float denom, float* __restrict__ partial,
-                    int* __restrict__ counter, float* __restrict__ mean,
-                    float* __restrict__ inv) {
+                    int* __restrict__ counter, float* __restrict__ out0,
+                    float* __restrict__ out1) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int role = stream_partial<T, false>(x, nullptr, nullptr, nullptr, sl,
                                             pl, smem, partial, counter);
@@ -455,12 +483,24 @@ __global__ void __launch_bounds__(THREADS + 32, 1)
         s = __fadd_rn(s, nsum[ch]);
         q = __fadd_rn(q, nsum[cg + ch]);
       }
-      const float mu = __fdiv_rn(s, denom);
-      const float var = __fsub_rn(__fdiv_rn(q, denom), __fmul_rn(mu, mu));
-      mean[u] = mu;
-      inv[u] = rsqrtf(__fadd_rn(var, eps));
+      if constexpr (SUMS) {
+        out0[u] = s;
+        out1[u] = q;
+      } else {
+        finalize_unit(s, q, denom, eps, &out0[u], &out1[u]);
+      }
     }
   }
+}
+
+// One block, thread u the units u, u + THREADS, ...
+__global__ void __launch_bounds__(THREADS, 1)
+    gn_finalize_kernel(const float* __restrict__ sum,
+                       const float* __restrict__ sq, int units, float denom,
+                       float eps, float* __restrict__ mean,
+                       float* __restrict__ inv) {
+  for (int u = threadIdx.x; u < units; u += blockDim.x)
+    finalize_unit(sum[u], sq[u], denom, eps, &mean[u], &inv[u]);
 }
 
 template <typename T>
@@ -793,11 +833,11 @@ extern "C" int gn_tile(int what, int n, long long s, int c, int groups,
   }
 }
 
-// dtype: 0 bf16, 1 f32. partial: (N, Bs, 2, C) f32 (Bs = gn_tile(12,
-// ...)); counter: one int, zeroed by the caller; sms: the device's SMs.
-extern "C" int gn_stats(const void* x, int dtype, int n, long long s, int c,
-                        int groups, float eps, int sms, float* partial,
-                        int* counter, float* mean, float* inv, void* stream) {
+template <bool SUMS>
+static int launch_stats(const void* x, int dtype, int n, long long s,
+                        int c, int groups, float eps, int sms, float* partial,
+                        int* counter, float* out0, float* out1,
+                        void* stream) {
   if (!shape_ok(n, s, c, groups, dtype, sms))
     return (int)cudaErrorInvalidValue;
   const void* ptrs[] = {x};
@@ -808,18 +848,49 @@ extern "C" int gn_stats(const void* x, int dtype, int n, long long s, int c,
   auto st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0) {
-    err = allow_ring(gn_stats_kernel<__nv_bfloat16>);
+    err = allow_ring(gn_stats_kernel<__nv_bfloat16, SUMS>);
     if (err != cudaSuccess) return (int)err;
-    gn_stats_kernel<__nv_bfloat16><<<blocks, THREADS + 32, REDUCE_SMEM, st>>>(
-        static_cast<const __nv_bfloat16*>(x), sl, p, eps, denom, partial,
-        counter, mean, inv);
+    gn_stats_kernel<__nv_bfloat16, SUMS>
+        <<<blocks, THREADS + 32, REDUCE_SMEM, st>>>(
+            static_cast<const __nv_bfloat16*>(x), sl, p, eps, denom, partial,
+            counter, out0, out1);
   } else {
-    err = allow_ring(gn_stats_kernel<float>);
+    err = allow_ring(gn_stats_kernel<float, SUMS>);
     if (err != cudaSuccess) return (int)err;
-    gn_stats_kernel<float><<<blocks, THREADS + 32, REDUCE_SMEM, st>>>(
+    gn_stats_kernel<float, SUMS><<<blocks, THREADS + 32, REDUCE_SMEM, st>>>(
         static_cast<const float*>(x), sl, p, eps, denom, partial, counter,
-        mean, inv);
+        out0, out1);
   }
+  return (int)cudaGetLastError();
+}
+
+// dtype: 0 bf16, 1 f32. partial: (N, Bs, 2, C) f32 (Bs = gn_tile(12,
+// ...)); counter: one int, zeroed by the caller; sms: the device's SMs.
+extern "C" int gn_stats(const void* x, int dtype, int n, long long s, int c,
+                        int groups, float eps, int sms, float* partial,
+                        int* counter, float* mean, float* inv, void* stream) {
+  return launch_stats<false>(x, dtype, n, s, c, groups, eps, sms, partial,
+                             counter, mean, inv, stream);
+}
+
+// gn_stats' launch and plan (its workspace too), writing the sums of x and
+// of x^2 per (n, group) instead of mean and inv.
+extern "C" int gn_stats_sums(const void* x, int dtype, int n, long long s,
+                             int c, int groups, int sms, float* partial,
+                             int* counter, float* sum, float* sq,
+                             void* stream) {
+  return launch_stats<true>(x, dtype, n, s, c, groups, 0.0f, sms, partial,
+                            counter, sum, sq, stream);
+}
+
+// sum, sq, mean, inv: `units` floats each (N * G); count: the elements of
+// each unit over every shard, D.
+extern "C" int gn_finalize(const float* sum, const float* sq, int units,
+                           long long count, float eps, float* mean,
+                           float* inv, void* stream) {
+  if (units < 1 || count < 1) return (int)cudaErrorInvalidValue;
+  gn_finalize_kernel<<<1, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      sum, sq, units, (float)(double)count, eps, mean, inv);
   return (int)cudaGetLastError();
 }
 
@@ -880,16 +951,15 @@ extern "C" int gn_bwd_reduce(const void* x, const void* g, int dtype, int n,
   return (int)cudaGetLastError();
 }
 
-extern "C" int gn_bwd_dx(const void* x, const void* g, int dtype, int n,
-                         long long s, int c, int groups, const float* mean,
-                         const float* inv, const float* scale,
-                         const float* sdx, const float* sdxx, int sms,
-                         void* dx, void* stream) {
+static int launch_dx(const void* x, const void* g, int dtype, int n,
+                     long long s, int c, int groups, const float* mean,
+                     const float* inv, const float* scale, const float* sdx,
+                     const float* sdxx, float denom, int sms, void* dx,
+                     void* stream) {
   if (!shape_ok(n, s, c, groups, dtype, sms))
     return (int)cudaErrorInvalidValue;
   const void* ptrs[] = {x, g, dx};
   const Slab sl = make_slab(n, s, c, groups, dtype, ptrs, 3);
-  const float denom = (float)((double)s * (c / groups));
   const int bs = blocks_per_sample(n, s, sms, DX_BLOCKS_PER_SM);
   const int lanes = row_lanes(c, dtype);
   const unsigned blocks = (unsigned)(n * bs);
@@ -904,4 +974,26 @@ extern "C" int gn_bwd_dx(const void* x, const void* g, int dtype, int n,
         static_cast<const float*>(x), static_cast<const float*>(g), mean, inv,
         scale, sdx, sdxx, sl, denom, bs, lanes, static_cast<float*>(dx));
   return (int)cudaGetLastError();
+}
+
+extern "C" int gn_bwd_dx(const void* x, const void* g, int dtype, int n,
+                         long long s, int c, int groups, const float* mean,
+                         const float* inv, const float* scale,
+                         const float* sdx, const float* sdxx, int sms,
+                         void* dx, void* stream) {
+  return launch_dx(x, g, dtype, n, s, c, groups, mean, inv, scale, sdx, sdxx,
+                   (float)((double)s * (c / groups)), sms, dx, stream);
+}
+
+// gn_bwd_dx with D = count, the elements of each (n, group) over every
+// shard of a volume split along X (the shard's own S * C / G otherwise).
+extern "C" int gn_bwd_dx_denom(const void* x, const void* g, int dtype,
+                               int n, long long s, int c, int groups,
+                               const float* mean, const float* inv,
+                               const float* scale, const float* sdx,
+                               const float* sdxx, long long count, int sms,
+                               void* dx, void* stream) {
+  if (count < 1) return (int)cudaErrorInvalidValue;
+  return launch_dx(x, g, dtype, n, s, c, groups, mean, inv, scale, sdx, sdxx,
+                   (float)(double)count, sms, dx, stream);
 }

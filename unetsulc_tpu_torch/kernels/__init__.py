@@ -7,7 +7,10 @@ Twelve kernels in seven sources: A ``conv3x3x3_fwd``
 mirrored in :mod:`unetsulc_tpu_torch.kernels.layout`, B
 ``max_pool_buf_fwd``, E ``max_pool_buf_bwd``, and the GroupNorm kernels
 ``gn_stats``, ``gn_apply``, ``gn_bwd_reduce`` and ``gn_bwd_dx``
-(``group_norm.cu``; their one-wave plan mirrored in :mod:`.layout`),
+(``group_norm.cu``; their one-wave plan mirrored in :mod:`.layout`; for a
+volume split along X over shards also ``gn_stats``' sums mode
+``gn_stats_sums``, ``gn_finalize`` and ``gn_bwd_dx``'s global-count mode
+``gn_bwd_dx_denom``, each counted under its own name),
 and the three probe kernels ``mxu_dot``, ``mxu_rdot`` and ``slab_build``
 (``mxu_probe.cu``, driven by
 :mod:`unetsulc_tpu_torch.tools.mxu_probe`; the two dot kernels on
@@ -126,6 +129,16 @@ KERNELS = {
     # stream
     "gn_bwd_dx": ("group_norm", [_P, _P, _I, _I, _L, _I, _I, _P, _P, _P, _P,
                                  _P, _I, _P, _P]),
+    # the sharded GroupNorm. x, dtype, n, s, c, groups, sms, partial,
+    # counter, sum, sq, stream
+    "gn_stats_sums": ("group_norm", [_P, _I, _I, _L, _I, _I, _I, _P, _P, _P,
+                                     _P, _P]),
+    # sum, sq, units, count, eps, mean, inv, stream
+    "gn_finalize": ("group_norm", [_P, _P, _I, _L, _F, _P, _P, _P]),
+    # x, g, dtype, n, s, c, groups, mean, inv, scale, sdx, sdxx, count, sms,
+    # dx, stream
+    "gn_bwd_dx_denom": ("group_norm", [_P, _P, _I, _I, _L, _I, _I, _P, _P, _P,
+                                       _P, _P, _L, _I, _P, _P]),
     # the probe. k, n, ps, reps, o, stream
     "mxu_dot": ("mxu_probe", [_I, _I, _I, _I, _P, _P]),
     # m, n, ps, reps, o, stream
@@ -796,6 +809,56 @@ def gn_stats(x: torch.Tensor, num_groups: int,
     return mean, inv
 
 
+def gn_stats_sums(x: torch.Tensor,
+                  num_groups: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel ``gn_stats``' sums mode (``gn_stats_sums``): (sum x, sum
+    x^2), each (N, G) f32, of the (N, S, C) slab x, the sums that
+    :func:`gn_stats` finalizes, added in its fixed order: a shard's part of
+    a GroupNorm over a volume split along X. Same plan and workspace as
+    :func:`gn_stats`."""
+    n, s, c, code = _check_gn(x, num_groups)
+    sms = _sm_count(x.device)
+    ws, counter = _gn_workspace("gn_stats", n, s, c, num_groups, code, sms,
+                                x.device)
+    sums = torch.empty((n, num_groups), dtype=torch.float32, device=x.device)
+    sq = torch.empty_like(sums)
+    fn = _kernel("gn_stats_sums")
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), code, n, s, c, num_groups, sms, ws.data_ptr(),
+                 counter.data_ptr(), sums.data_ptr(), sq.data_ptr(),
+                 torch.cuda.current_stream(x.device).cuda_stream)
+    _raise_on(err, "gn_stats_sums")
+    _count("gn_stats_sums")
+    return sums, sq
+
+
+def gn_finalize(sums: torch.Tensor, sq: torch.Tensor, count: int,
+                eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel ``gn_finalize``, one block: (mean_g, inv_g), each (N, G) f32,
+    from the (N, G) f32 sums of x and of x^2 over ``count`` elements per
+    (sample, group), with :func:`gn_stats`' own tail: mean = sum / D, inv =
+    rsqrt(sq / D - mean^2 + eps), D = count."""
+    if sums.dim() != 2 or min(sums.shape) < 1:
+        raise ValueError(f"sums must be a non-empty (N, G) tensor, got "
+                         f"{tuple(sums.shape)}")
+    if not sums.is_cuda:
+        raise ValueError(f"sums must be a CUDA tensor, got {sums.device}")
+    for t, what in ((sums, "sums"), (sq, "sq")):
+        _check_f32(t, sums.shape, sums.device, what)
+    if count < 1:
+        raise ValueError(f"count must be positive, got {count}")
+    mean = torch.empty_like(sums)
+    inv = torch.empty_like(sums)
+    fn = _kernel("gn_finalize")
+    with torch.cuda.device(sums.device):
+        err = fn(sums.data_ptr(), sq.data_ptr(), sums.numel(), int(count),
+                 float(eps), mean.data_ptr(), inv.data_ptr(),
+                 torch.cuda.current_stream(sums.device).cuda_stream)
+    _raise_on(err, "gn_finalize")
+    _count("gn_finalize")
+    return mean, inv
+
+
 def gn_apply(x: torch.Tensor, mean: torch.Tensor, inv: torch.Tensor,
              scale: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     """Kernel ``gn_apply``: (x - mean_c) * (inv_c * scale) + bias in f32,
@@ -853,25 +916,31 @@ def gn_bwd_reduce(x: torch.Tensor, g: torch.Tensor, mean: torch.Tensor,
 
 def gn_bwd_dx(x: torch.Tensor, g: torch.Tensor, mean: torch.Tensor,
               inv: torch.Tensor, scale: torch.Tensor, sdx: torch.Tensor,
-              sdxx: torch.Tensor) -> torch.Tensor:
+              sdxx: torch.Tensor, denom: Optional[int] = None) -> torch.Tensor:
     """Kernel ``gn_bwd_dx``: dx = inv/D * (D * g * scale - sdx - xhat *
-    sdxx) in f32, in x's dtype and shape (D = S * C / G)."""
+    sdxx) in f32, in x's dtype and shape, D = S * C / G; or, with
+    ``denom`` (the elements per (sample, group) of a volume split over
+    shards), D = denom, launched as ``gn_bwd_dx_denom``."""
     groups = int(mean.shape[1]) if mean.dim() == 2 else 0
     n, s, c, code = _check_gn(x, groups, g)
     for t, what in ((mean, "mean"), (inv, "inv"), (sdx, "sdx"),
                     (sdxx, "sdxx")):
         _check_f32(t, (n, groups), x.device, what)
     _check_f32(scale, (c,), x.device, "scale")
+    name = "gn_bwd_dx" if denom is None else "gn_bwd_dx_denom"
+    if denom is not None and denom < 1:
+        raise ValueError(f"denom must be positive, got {denom}")
+    count = () if denom is None else (int(denom),)
     dx = torch.empty_like(x)
-    fn = _kernel("gn_bwd_dx")
+    fn = _kernel(name)
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), g.data_ptr(), code, n, s, c, groups,
                  mean.data_ptr(), inv.data_ptr(), scale.data_ptr(),
-                 sdx.data_ptr(), sdxx.data_ptr(), _sm_count(x.device),
+                 sdx.data_ptr(), sdxx.data_ptr(), *count, _sm_count(x.device),
                  dx.data_ptr(),
                  torch.cuda.current_stream(x.device).cuda_stream)
-    _raise_on(err, "gn_bwd_dx")
-    _count("gn_bwd_dx")
+    _raise_on(err, name)
+    _count(name)
     return dx
 
 

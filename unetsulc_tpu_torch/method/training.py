@@ -18,11 +18,12 @@ steps:
 * with ``tpu.data_parallel > 1`` each batch is padded to a multiple of
   the data axis (``alloc_batch``) and cut over the mesh's data rows
   (:func:`parallel.shard_batch`), the rows' gradients meeting in the home
-  parameters.
-
-A ``spatial_parallel`` request the sharded fused pipeline cannot take
-(the JAX package's ``pjit_auto_spmd`` path; ROADMAP.md §1 item 6) raises
-``NotImplementedError`` instead of falling back.
+  parameters;
+* with ``tpu.spatial_parallel > 1`` each volume's X axis is split over
+  the mesh's space shards: on the sharded fused pipeline where the model
+  and the axis allow it, else on the non-fused path with halo exchanges
+  (:mod:`parallel.halo`), as the JAX package falls back to its
+  ``pjit_auto_spmd`` XLA step.
 """
 
 from __future__ import annotations
@@ -55,9 +56,11 @@ from unetsulc_tpu_torch.train.step import (
     make_eval_step,
     make_eval_step_dp,
     make_eval_step_sp,
+    make_eval_step_sp_halo,
     make_train_step,
     make_train_step_dp,
     make_train_step_sp,
+    make_train_step_sp_halo,
 )
 from unetsulc_tpu_torch.utils.profiling import EpochTimer, HostSpans, span
 
@@ -69,36 +72,41 @@ def _route_steps(model, num_classes: int, momentum: float, dp: int = 1,
     The record has the JAX package's keys, with the port's own values:
 
     * ``step``: ``"single_device"``; ``"dp_mesh"``, the data-parallel step
-      (``make_train_step_dp``) on a mesh of ``dp`` data rows; or
-      ``"sp_mesh"``, the spatially sharded step of ``parallel/``
-      (``make_train_step_sp``) on ``dp`` rows of ``spatial`` shards. One
+      (``make_train_step_dp``) on a mesh of ``dp`` data rows;
+      ``"sp_mesh"``, the sharded fused step of ``parallel/``
+      (``make_train_step_sp``) on ``dp`` rows of ``spatial`` shards; or
+      ``"sp_halo"``, the sharded non-fused step
+      (``make_train_step_sp_halo``, the JAX package's ``pjit_auto_spmd``)
+      on that mesh, for a request the sharded fused pipeline cannot take:
+      a model off the fused path, or a space axis outside {2, 4, 8}. One
       process drives every shard. The mesh takes ``devices`` (a fold's
       device group) when given, else shard i goes to ``cuda:i``; on the
       CPU every shard is on the CPU;
-    * ``kernels``: ``"fused"`` when the model's configuration takes the
-      fused pipeline (kernels A-E on the card, their plain versions on the
-      CPU), ``"nonfused"`` otherwise (cuDNN convs and the GroupNorm
-      kernels);
+    * ``kernels``: ``"fused"`` when the step runs the fused pipeline
+      (kernels A-E on the card, their plain versions on the CPU),
+      ``"nonfused"`` otherwise (cuDNN convs and the GroupNorm kernels);
     * ``data_parallel``, ``spatial_parallel``: the requested sizes;
-    * ``sp_fallback``: always False — the port has no fallback path.
+    * ``sp_fallback``: True exactly when a ``spatial_parallel`` request
+      does not take the sharded fused pipeline (``"sp_halo"``), where the
+      JAX package's record has it.
     """
     fused = model.fused_config()
+    halo = spatial > 1 and not (fused and sp_static_shapes_ok(spatial))
     record = {
-        "step": ("sp_mesh" if spatial > 1 else "dp_mesh" if dp > 1
-                 else "single_device"),
-        "kernels": "fused" if fused else "nonfused",
+        "step": ("sp_halo" if halo else "sp_mesh" if spatial > 1
+                 else "dp_mesh" if dp > 1 else "single_device"),
+        "kernels": "fused" if fused and not halo else "nonfused",
         "data_parallel": dp,
         "spatial_parallel": spatial,
-        "sp_fallback": False,
+        "sp_fallback": halo,
     }
     final_sigmoid = model.final_sigmoid
-    if spatial > 1 and not (fused and sp_static_shapes_ok(spatial)):
-        raise NotImplementedError(
-            f"tpu.spatial_parallel={spatial}: the sharded fused pipeline "
-            "needs a bf16 'crg' interpolating model without dropout and "
-            "a space axis in {2, 4, 8}; the JAX package's pjit_auto_spmd "
-            "path for the rest needs parallel/halo.py (ROADMAP.md §1 "
-            "item 6)")
+    if halo:
+        # the JAX package's notice for its pjit_auto_spmd fallback
+        print(f"spatial_parallel={spatial}: config ineligible for the "
+              "sharded fused pipeline (needs a bf16 'crg' interpolating "
+              "model without dropout, a space axis in {2, 4, 8}); using "
+              "the sharded non-fused path with halo exchanges")
     if dp <= 1 and spatial <= 1:
         return (make_train_step(model, num_classes, momentum=momentum),
                 make_eval_step(model, num_classes, final_sigmoid=final_sigmoid),
@@ -110,6 +118,12 @@ def _route_steps(model, num_classes: int, momentum: float, dp: int = 1,
     if mesh.home != dev:
         raise ValueError(f"the model lives on {dev}, the mesh's home "
                          f"device is {mesh.home}")
+    if halo:
+        return (make_train_step_sp_halo(model, num_classes, mesh,
+                                        momentum=momentum),
+                make_eval_step_sp_halo(model, num_classes, mesh,
+                                       final_sigmoid=final_sigmoid),
+                mesh, record)
     if spatial > 1:
         return (make_train_step_sp(model, num_classes, mesh, momentum=momentum),
                 make_eval_step_sp(model, num_classes, mesh,

@@ -53,6 +53,16 @@ parameters, same ``state_dict``.
   (CONTRACTS.md §5 U2; ``interpolate=False``), or by the trilinear resize;
 * the head runs on the 5-D tensor; ``padded_output`` has no effect.
 
+**The spatial-parallel non-fused path**
+(:meth:`UNet3D.forward_sp_nonfused`, the JAX package's ``pjit_auto_spmd``
+step, where XLA partitions the XLA path) runs the non-fused path on a list
+of X slabs, every layer in lockstep over the shards, on
+:mod:`unetsulc_tpu_torch.parallel.halo`'s sharded ops: convs with one
+neighbour plane each side, pools, upsamplings and dropout on each shard's
+rows of a level, GroupNorm statistics added over the shards
+(:func:`~unetsulc_tpu_torch.ops.groupnorm.group_norm_sharded`). Every level
+stays sharded, the deep ones split unevenly.
+
 In f32 the non-fused convs and matmuls run with TF32 off
 (:func:`~unetsulc_tpu_torch.ops.conv_fused.no_tf32`, the counterpart of
 ``Precision.HIGHEST``).
@@ -86,8 +96,9 @@ from torch import nn
 
 from unetsulc_tpu_torch.device import resolve_device
 from unetsulc_tpu_torch.ops import conv_fused as cf
-from unetsulc_tpu_torch.ops.groupnorm import group_norm
+from unetsulc_tpu_torch.ops.groupnorm import group_norm, group_norm_sharded
 from unetsulc_tpu_torch.ops.resize import resize_trilinear, resize_trilinear_buf
+from unetsulc_tpu_torch.parallel import halo
 from unetsulc_tpu_torch.parallel import sp_fused as sp
 
 
@@ -289,6 +300,25 @@ class DoubleConv(nn.Module):
         x = self._unit(x, self.conv1, getattr(self, "norm1", None), dtype)
         return self._unit(x, self.conv2, getattr(self, "norm2", None), dtype)
 
+    def _unit_sp(self, xs, conv: nn.Conv3d, norm: Optional[nn.GroupNorm],
+                 dtype) -> List[torch.Tensor]:
+        for op in self.order:
+            if op == "c":
+                xs = halo.conv3d_spatial(xs, conv.weight, conv.bias, dtype)
+            elif op == "r":
+                xs = [torch.relu(v) for v in xs]
+            else:
+                xs = group_norm_sharded(xs, norm.num_groups, norm.weight,
+                                        norm.bias, norm.eps)
+        return xs
+
+    def nonfused_sp(self, xs, dtype: torch.dtype) -> List[torch.Tensor]:
+        """:meth:`nonfused` on a level split along X (one tensor or one
+        (skip, upsampled) pair per shard)."""
+        xs = self._unit_sp(xs, self.conv1, getattr(self, "norm1", None), dtype)
+        return self._unit_sp(xs, self.conv2, getattr(self, "norm2", None),
+                             dtype)
+
 
 class Encoder(nn.Module):
     def __init__(self, in_channels, out_channels, pool: bool, order="crg",
@@ -322,6 +352,11 @@ class Encoder(nn.Module):
         if self.pool:
             x = max_pool_3d(x)
         return self.double_conv.nonfused(x, dtype)
+
+    def nonfused_sp(self, xs, dtype: torch.dtype) -> List[torch.Tensor]:
+        if self.pool:
+            xs = halo.max_pool_3d_spatial(xs)
+        return self.double_conv.nonfused_sp(xs, dtype)
 
 
 class Decoder(nn.Module):
@@ -372,6 +407,22 @@ class Decoder(nn.Module):
                                     self.upsample.bias, dtype)
             up = up[:, :tx, :ty, :tz]
         return self.double_conv.nonfused((skip, up.to(skip.dtype)), dtype)
+
+    def nonfused_sp(self, skips: List[torch.Tensor], xs: List[torch.Tensor],
+                    dtype) -> List[torch.Tensor]:
+        """:meth:`nonfused` on levels split along X: each shard upsamples
+        the deeper level to its own rows of the skip's."""
+        rows = halo.row_ranges(skips)
+        devices = [v.device for v in skips]
+        tx, ty, tz = rows[-1][1], int(skips[0].shape[2]), int(skips[0].shape[3])
+        if self.interpolate:
+            ups = halo.resize_trilinear_spatial(xs, rows, devices, (tx, ty, tz))
+        else:
+            ups = halo.upsample_transpose_spatial(
+                xs, self.upsample.weight, self.upsample.bias, dtype, rows,
+                devices, (ty, tz))
+        return self.double_conv.nonfused_sp(
+            [(v, u.to(v.dtype)) for v, u in zip(skips, ups)], dtype)
 
 
 def sp_gather(x: List[FusedVol]) -> FusedVol:
@@ -549,6 +600,16 @@ class UNet3D(nn.Module):
             v = dec.nonfused(skip, v, dt)
         return self._head(v)
 
+    def _check_slabs(self, xs: List[torch.Tensor]) -> None:
+        if not xs or any(x.dim() != 5 or x.shape[-1] != self.in_channels
+                         or x.shape[0] != xs[0].shape[0]
+                         or x.shape[2:] != xs[0].shape[2:] for x in xs):
+            raise ValueError("expected one (N, S, Y, Z, in_channels) slab "
+                             "per shard, of one shape")
+        if xs[0].device != self.device:
+            raise ValueError(f"the first slab is on {xs[0].device}, the model "
+                             f"on {self.device}")
+
     def forward_sp(
         self,
         xs: List[torch.Tensor],
@@ -568,14 +629,7 @@ class UNet3D(nn.Module):
         of the JAX package): batch > 1 per shard, dropout, another order,
         ``interpolate=False``, in_channels > 8, an extent < 4, f32 on CUDA,
         ``fused_blocks=False``."""
-        if not xs or any(x.dim() != 5 or x.shape[-1] != self.in_channels
-                         or x.shape[0] != xs[0].shape[0]
-                         or x.shape[2:] != xs[0].shape[2:] for x in xs):
-            raise ValueError("expected one (N, S, Y, Z, in_channels) slab "
-                             "per shard, of one shape")
-        if xs[0].device != self.device:
-            raise ValueError(f"the first slab is on {xs[0].device}, the model "
-                             f"on {self.device}")
+        self._check_slabs(xs)
         s = int(xs[0].shape[1])
         if not self.fused_eligible(xs[0]) or (self.sp_shard_middle and s % 2):
             raise ValueError(
@@ -608,6 +662,48 @@ class UNet3D(nn.Module):
         for u in v:
             h = u.buf if padded_output else cf.unpad_from_geom(u.buf, u.g)
             outs.append(self._head(cf.apply_affine(h, u.aff)))
+        if apply_final_activation is None:
+            apply_final_activation = not train
+        if apply_final_activation:
+            outs = [torch.sigmoid(o) if self.final_sigmoid
+                    else torch.softmax(o, -1) for o in outs]
+        return outs
+
+    def forward_sp_nonfused(
+        self,
+        xs: List[torch.Tensor],
+        train: bool = True,
+        apply_final_activation: Optional[bool] = None,
+        padded_output: bool = False,
+        dropout_generator: Optional[torch.Generator] = None,
+    ) -> List[torch.Tensor]:
+        """The non-fused forward of a batch split along X into slabs, one
+        per shard (``parallel.shard_x``): xs[k] (N, S, Y, Z, in_channels) on
+        shard k's device, the first shard's device the model's. Returns
+        each shard's (N, S, Y, Z, out_channels) output, the rows of
+        :meth:`forward`'s non-fused output that its slab covers, whatever
+        the configuration (any order, ``interpolate``, dropout, f32 or
+        bf16). ``padded_output`` has no effect, as on the non-fused path.
+        Dropout draws from ``dropout_generator`` the whole level's masks,
+        as :meth:`forward` draws them."""
+        self._check_slabs(xs)
+        dt = self.compute_dtype
+        drop = train and self.dropout > 0
+        if drop and dropout_generator is None:
+            raise ValueError("dropout > 0 in train mode needs a "
+                             "dropout_generator")
+        with self.precision():
+            v = [x.to(dt) for x in xs]
+            skips = []
+            for enc in self.encoders:
+                v = enc.nonfused_sp(v, dt)
+                if drop:
+                    v = halo.dropout_spatial(v, self.dropout,
+                                             dropout_generator)
+                skips.insert(0, v)
+            for dec, skip in zip(self.decoders, skips[1:]):
+                v = dec.nonfused_sp(skip, v, dt)
+            outs = [self._head(u) for u in v]
         if apply_final_activation is None:
             apply_final_activation = not train
         if apply_final_activation:

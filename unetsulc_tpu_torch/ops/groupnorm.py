@@ -19,6 +19,13 @@ version beside it; there is no other branch):
 * :func:`gn_bwd_dx` — ``dx = inv/D * (D*dxhat - sum(dxhat) - xhat *
   sum(dxhat*xhat))`` with D = S * C/G, in x's dtype.
 
+:func:`group_norm_sharded` is the same GroupNorm over a volume split along
+X into shards (:mod:`unetsulc_tpu_torch.parallel.halo`), the counterpart
+of the statistics XLA all-reduces under the JAX package's ``pjit``: each
+shard's raw sums (:func:`gn_sums`), added on the home device in shard
+order, then :func:`gn_finalize` over the global count; the backward's
+sums likewise, and :func:`gn_bwd_dx` with the global D (``denom``).
+
 The TPU package gates its kernel by whether a slab fits VMEM
 (``use_pallas_for``); the CUDA kernels split the reduction across blocks
 and take every size, so there is no gate.
@@ -26,7 +33,8 @@ and take every size, so there is no gate.
 
 from __future__ import annotations
 
-from typing import Tuple
+import math
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -43,17 +51,32 @@ def _per_channel(v: torch.Tensor, c: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def gn_sums_plain(x3: torch.Tensor,
+                  num_groups: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(sum x, sum x^2), each (N, G) f32, of the (N, S, C) slab."""
+    n = x3.shape[0]
+    xf = x3.float()
+    ch_sum = xf.sum(1).view(n, num_groups, -1).sum(-1)
+    ch_sq = (xf * xf).sum(1).view(n, num_groups, -1).sum(-1)
+    return ch_sum, ch_sq
+
+
+def gn_finalize_plain(sums: torch.Tensor, sq: torch.Tensor, count: int,
+                      eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(mean_g, inv_g) from the sums over ``count`` elements per (sample,
+    group): mean = sum / D, inv = rsqrt(sq / D - mean^2 + eps)."""
+    denom = float(count)
+    mean = sums / denom
+    var = sq / denom - mean * mean
+    return mean, torch.rsqrt(var + eps)
+
+
 def gn_stats_plain(x3: torch.Tensor, num_groups: int,
                    eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """(mean_g, inv_g), each (N, G) f32, of the (N, S, C) slab."""
-    n, s, c = x3.shape
-    xf = x3.float()
-    denom = float(s * (c // num_groups))
-    ch_sum = xf.sum(1).view(n, num_groups, -1).sum(-1)
-    ch_sq = (xf * xf).sum(1).view(n, num_groups, -1).sum(-1)
-    mean = ch_sum / denom
-    var = ch_sq / denom - mean * mean
-    return mean, torch.rsqrt(var + eps)
+    _, s, c = x3.shape
+    return gn_finalize_plain(*gn_sums_plain(x3, num_groups),
+                             s * (c // num_groups), eps)
 
 
 def gn_apply_plain(x3, mean, inv, scale, bias) -> torch.Tensor:
@@ -82,11 +105,13 @@ def gn_bwd_reduce_plain(x3, g3, mean, inv, scale):
             (dxhat * xhat).sum(1).view(n, groups, -1).sum(-1))
 
 
-def gn_bwd_dx_plain(x3, g3, mean, inv, scale, sdx, sdxx) -> torch.Tensor:
+def gn_bwd_dx_plain(x3, g3, mean, inv, scale, sdx, sdxx,
+                    denom=None) -> torch.Tensor:
     """dx = inv/D * (D*dxhat - sum dxhat - xhat * sum dxhat*xhat), in x's
-    dtype (groupnorm_pallas.py:133-134)."""
+    dtype (groupnorm_pallas.py:133-134); D = S * C/G, or ``denom`` (the
+    global count of a sharded volume)."""
     _, s, c = x3.shape
-    d = float(s * (c // mean.shape[1]))
+    d = float(s * (c // mean.shape[1]) if denom is None else denom)
     xhat = _xhat(x3, mean, inv)
     dxhat = g3.float() * scale.float()
     dx = _per_channel(inv, c) / d * (
@@ -105,6 +130,18 @@ def gn_stats(x3, num_groups: int, eps: float):
     return gn_stats_plain(x3, num_groups, eps)
 
 
+def gn_sums(x3, num_groups: int):
+    if x3.is_cuda:
+        return kernels.gn_stats_sums(x3, num_groups)
+    return gn_sums_plain(x3, num_groups)
+
+
+def gn_finalize(sums, sq, count: int, eps: float):
+    if sums.is_cuda:
+        return kernels.gn_finalize(sums, sq, count, eps)
+    return gn_finalize_plain(sums, sq, count, eps)
+
+
 def gn_apply(x3, mean, inv, scale, bias):
     if x3.is_cuda:
         return kernels.gn_apply(x3, mean, inv, scale.float().contiguous(),
@@ -119,11 +156,12 @@ def gn_bwd_reduce(x3, g3, mean, inv, scale):
     return gn_bwd_reduce_plain(x3, g3, mean, inv, scale)
 
 
-def gn_bwd_dx(x3, g3, mean, inv, scale, sdx, sdxx):
+def gn_bwd_dx(x3, g3, mean, inv, scale, sdx, sdxx, denom=None):
     if x3.is_cuda:
         return kernels.gn_bwd_dx(x3, g3, mean, inv,
-                                 scale.float().contiguous(), sdx, sdxx)
-    return gn_bwd_dx_plain(x3, g3, mean, inv, scale, sdx, sdxx)
+                                 scale.float().contiguous(), sdx, sdxx,
+                                 denom=denom)
+    return gn_bwd_dx_plain(x3, g3, mean, inv, scale, sdx, sdxx, denom)
 
 
 class GroupNormFn(torch.autograd.Function):
@@ -162,3 +200,88 @@ def group_norm(x: torch.Tensor, num_groups: int, scale: torch.Tensor,
     if c % num_groups:
         raise ValueError(f"{c} channels do not split into {num_groups} groups")
     return GroupNormFn.apply(x, scale, bias, num_groups, eps)
+
+
+def _sum_home(parts, home: torch.device):
+    """The tensors of ``parts`` added on ``home`` in their order."""
+    total = parts[0].to(home)
+    for t in parts[1:]:
+        total = total + t.to(home)
+    return total
+
+
+class GroupNormShardedFn(torch.autograd.Function):
+    """:class:`GroupNormFn` over the shards of a volume split along X: the
+    statistics and the backward's sums added on ``home`` in shard order.
+    A shard without rows (a deep level of an uneven partition) takes no
+    launch and adds nothing."""
+
+    @staticmethod
+    def forward(ctx, num_groups: int, eps: float, home, scale, bias, *xs):
+        x3s = [x.reshape(x.shape[0], math.prod(x.shape[1:-1]),
+                         x.shape[-1]).contiguous() for x in xs]
+        live = [k for k, t in enumerate(x3s) if t.shape[1] > 0]
+        c = int(xs[0].shape[-1])
+        count = sum(int(x3s[k].shape[1]) for k in live) * (c // num_groups)
+        sums = [gn_sums(x3s[k], num_groups) for k in live]
+        mean, inv = gn_finalize(_sum_home([t[0] for t in sums], home),
+                                _sum_home([t[1] for t in sums], home),
+                                count, eps)
+        outs = []
+        for k, (x, x3) in enumerate(zip(xs, x3s)):
+            if k not in live:
+                outs.append(torch.empty_like(x))
+                continue
+            d = x.device
+            outs.append(gn_apply(x3, mean.to(d), inv.to(d), scale.to(d),
+                                 bias.to(d)).view(x.shape))
+        ctx.shapes = [x.shape for x in xs]
+        ctx.live, ctx.count, ctx.home = live, count, home
+        ctx.save_for_backward(scale, mean, inv, *x3s)
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        scale, mean, inv, *x3s = ctx.saved_tensors
+        home, live = ctx.home, ctx.live
+        local = {}
+        for k in live:
+            x3, d = x3s[k], x3s[k].device
+            g3 = gs[k].reshape(x3.shape).to(x3.dtype).contiguous()
+            m, iv, sc = mean.to(d), inv.to(d), scale.to(d)
+            local[k] = (g3, m, iv, sc, gn_bwd_reduce(x3, g3, m, iv, sc))
+        red = [_sum_home([local[k][4][i] for k in live], home)
+               for i in range(4)]
+        dxs = [None] * len(x3s)
+        for k, x3 in enumerate(x3s):
+            if not ctx.needs_input_grad[5 + k]:
+                continue
+            if k not in live:
+                dxs[k] = torch.zeros(ctx.shapes[k], dtype=x3.dtype,
+                                     device=x3.device)
+                continue
+            g3, m, iv, sc, _ = local[k]
+            d = x3.device
+            dxs[k] = gn_bwd_dx(x3, g3, m, iv, sc, red[2].to(d), red[3].to(d),
+                               denom=ctx.count).view(ctx.shapes[k])
+        return (None, None, None,
+                red[0].to(scale) if ctx.needs_input_grad[3] else None,
+                red[1].to(scale) if ctx.needs_input_grad[4] else None,
+                *dxs)
+
+
+def group_norm_sharded(xs, num_groups: int, scale: torch.Tensor,
+                       bias: torch.Tensor, eps: float = 1e-5,
+                       home: Optional[torch.device] = None
+                       ) -> List[torch.Tensor]:
+    """:func:`group_norm` of the volume whose X slabs are ``xs`` (one
+    (N, S_k, Y, Z, C) tensor per shard, on its shard's device; S_k may
+    differ and be 0): per-sample statistics over every shard's voxels,
+    added on ``home`` (default: the first shard's device). Returns the
+    shards' outputs; differentiable in ``xs``, ``scale`` and ``bias``."""
+    c = int(xs[0].shape[-1])
+    if c % num_groups:
+        raise ValueError(f"{c} channels do not split into {num_groups} groups")
+    home = xs[0].device if home is None else home
+    return list(GroupNormShardedFn.apply(num_groups, eps, home, scale, bias,
+                                         *xs))

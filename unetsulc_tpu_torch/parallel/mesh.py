@@ -17,10 +17,11 @@ plain tensor code:
   and copy the sum back to each shard where they need it;
 * ``all_gather``: ``torch.cat`` along X.
 
-The JAX module's sharding objects have no counterpart here, their jobs
+The JAX package's sharding objects have no counterpart here, their jobs
 went elsewhere: ``batch_sharding`` and ``label_sharding`` (the batch over
-``data``, X over ``space``) are :func:`shard_batch` and :func:`shard_x`,
-which place each piece on its device; ``replicate`` (parameters and
+``data``, X over ``space``) and ``halo.py``'s ``spatial_sharding`` (X over
+``space``) are :func:`shard_batch` and :func:`shard_x`, which place each
+piece on its device; ``replicate`` (parameters and
 optimizer state on every device) is the model living on the home device,
 each shard's forward reading its weights through ``.to(device)``, so that
 autograd brings every shard's gradient home, where they meet in ``.grad``

@@ -35,6 +35,14 @@ loss, so the gradients of all shards meet in the model's parameters (the
 JAX steps' psums) before the same SGD-with-momentum update. On a mesh
 with ``data`` > 1 each data row runs its own volumes so.
 
+:func:`make_train_step_sp_halo` and :func:`make_eval_step_sp_halo` are
+the spatially sharded steps of a model the fused pipeline does not take
+(the JAX package's ``pjit_auto_spmd`` step): on the same arguments as the
+sp steps, each data row runs its whole batch at once through
+``UNet3D.forward_sp_nonfused``, whose halo exchanges and shard-added
+GroupNorm statistics make it the single-device non-fused forward, then the
+loss, counts and update of :func:`make_train_step_sp`.
+
 :func:`make_train_step_dp` and :func:`make_eval_step_dp` are the
 data-parallel steps: the batch cut over the mesh's ``data`` rows
 (``parallel.shard_batch``), each row running its local batch as
@@ -305,14 +313,15 @@ def _check_rows(mesh: Mesh, inputs, labels) -> None:
 
 def _sp_volume(run, xs, lbs, num_classes: int, background: int, home,
                train: bool, apply_activation: bool = False,
-               final_sigmoid: bool = False):
+               final_sigmoid: bool = False, **forward_kw):
     """One volume through ``run`` (the model's ``forward_sp``, on the
-    row's device: :func:`_replica`): (NLL sum, valid count, confusion
-    counts), each the sum over the shards on ``home``. The counts come
-    from the raw logits; with ``apply_activation`` the NLL from the
-    activated outputs (the eval-mode quirk)."""
+    row's device: :func:`_replica`; or a row's batch through
+    ``forward_sp_nonfused``): (NLL sum, valid count, confusion counts),
+    each the sum over the shards on ``home``. The counts come from the raw
+    logits; with ``apply_activation`` the NLL from the activated outputs
+    (the eval-mode quirk)."""
     logits = run(xs, train=train, apply_final_activation=False,
-                 padded_output=True)
+                 padded_output=True, **forward_kw)
     nll = torch.zeros((), dtype=torch.float32, device=home)
     cnt = torch.zeros((), dtype=torch.int64, device=home)
     counts = torch.zeros((3, num_classes), dtype=torch.int32, device=home)
@@ -395,6 +404,80 @@ def make_eval_step_sp(model: torch.nn.Module, num_classes: int, mesh: Mesh,
                                       apply_activation=apply_activation,
                                       final_sigmoid=final_sigmoid)
                 nll, cnt, counts = nll + n, cnt + c, counts + cc
+        return nll / cnt.clamp_min(1), counts
+
+    return step
+
+
+def make_train_step_sp_halo(model: torch.nn.Module, num_classes: int,
+                            mesh: Mesh, momentum: float = 0.9,
+                            background: int = -1) -> Callable:
+    """The spatially sharded non-fused train step (the JAX package's plain
+    step under ``pjit`` with the batch over (data, space)): ``step(state,
+    inputs, labels) -> (loss, counts)`` on the mesh's home device, on the
+    arguments of :func:`make_train_step_sp`. Each data row runs its whole
+    batch in one ``model.forward_sp_nonfused`` with the weights read on
+    the row's first device; its loss is the shards' NLL sum over the
+    whole batch's valid count, then one backward per row and one
+    SGD-with-momentum update, as :func:`make_train_step_sp`. With dropout,
+    row i draws its masks from ``dropout_generator(0, state.step, device,
+    shard=i)`` as :func:`make_train_step_dp` does, or, on a mesh with one
+    data row, from the single-device step's ``dropout_generator(0,
+    state.step, device)``: the sharded step is then the step it shards."""
+
+    def step(state: TrainState, inputs, labels
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+        _begin(state, model, momentum)
+        rows = _sp_rows(mesh, inputs, labels)
+        home = mesh.home
+        denom = sum((lb != background).sum().to(home)
+                    for _, _, ls in rows for lb in ls)
+        denom = denom.clamp_min(1).float()
+        loss = torch.zeros((), dtype=torch.float32, device=home)
+        counts = torch.zeros((3, num_classes), dtype=torch.int32, device=home)
+        for i, (row, xs, ls) in enumerate(rows):
+            gen = (dropout_generator(0, state.step, row.home,
+                                     shard=i if mesh.data > 1 else None)
+                   if model.dropout > 0 else None)
+            nll, _, c = _sp_volume(
+                _replica(model, row.home, "forward_sp_nonfused"), xs, ls,
+                num_classes, background, home, train=True,
+                dropout_generator=gen)
+            part = nll / denom
+            if part.requires_grad:
+                with model.precision():
+                    part.backward()
+            loss = loss + part.detach()
+            counts = counts + c
+        _finish(state)
+        return loss, counts
+
+    return step
+
+
+def make_eval_step_sp_halo(model: torch.nn.Module, num_classes: int,
+                           mesh: Mesh, background: int = -1,
+                           apply_activation: bool = True,
+                           final_sigmoid: bool = False) -> Callable:
+    """The spatially sharded non-fused eval step: ``step(inputs, labels)
+    -> (loss, counts)`` on the arguments of :func:`make_eval_step_sp`,
+    each row's batch in one ``model.forward_sp_nonfused``; loss and counts
+    as :func:`make_eval_step`."""
+
+    @torch.no_grad()
+    def step(inputs, labels) -> Tuple[torch.Tensor, torch.Tensor]:
+        rows = _sp_rows(mesh, inputs, labels)
+        home = mesh.home
+        nll = torch.zeros((), dtype=torch.float32, device=home)
+        cnt = torch.zeros((), dtype=torch.int64, device=home)
+        counts = torch.zeros((3, num_classes), dtype=torch.int32, device=home)
+        for row, xs, ls in rows:
+            n, c, cc = _sp_volume(
+                _replica(model, row.home, "forward_sp_nonfused"), xs, ls,
+                num_classes, background, home, train=False,
+                apply_activation=apply_activation,
+                final_sigmoid=final_sigmoid)
+            nll, cnt, counts = nll + n, cnt + c, counts + cc
         return nll / cnt.clamp_min(1), counts
 
     return step
