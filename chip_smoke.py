@@ -184,7 +184,21 @@ order (each phase aborts the script with a non-zero exit on failure):
    sharded step, the sharded eval step; one f32 step at space 2 of the 'crg' interpolating flagship; and
    ``graft_entry.dryrun_multichip(2)``; then every launch of the new modes
    in one space-2 step timed against its plain version and its bound;
-24. prints the kernels' JSON line, the card line, and the final JSON line.
+24. the pattern classifier at full width (``PatternCNN3D`` (16, 32, 64),
+   f32, a 96^3 box, batch 4, ``PatternDataset`` on synthetic graphs of
+   extent 90): its GroupNorm launches per Adam step (counts zeroed just
+   before: one of each kernel per layer, C 8 to 64), each held to its plain
+   version at phase 12's bars and timed; the step twice from one state
+   (bit-equal) and against the plain step (loss rtol 1e-5, gradients at
+   phase 9's bars); 3 + 10 timed steps, peak memory; then
+   ``train_pattern_classifier`` (30 epochs, lr 3e-3): a falling loss, best
+   eval accuracy >= 0.9, its launches. Then ``remat`` on the fused step
+   (phase 9's batch), phase 14's non-fused step and a space-2 sp step: each
+   bit-equal with and without remat (loss, counts, gradients, the updated
+   parameters), forward kernels launched twice as often, the others as
+   often; the fused step with and without remat timed in turns, peak
+   memory;
+25. prints the kernels' JSON line, the card line, and the final JSON line.
 
 It exits non-zero without a result when CUDA is not available. Scratch
 files go under ``build/chip_smoke/``.
@@ -3343,6 +3357,350 @@ def gn_shard_rows(calls):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the pattern classifier and remat (phase 24)
+# ---------------------------------------------------------------------------
+
+# the pattern classifier at full width: PatternCNN3D (16, 32, 64) in f32
+# (the trainer's default) on a 96^3 box (the flagship's bucket, a whole
+# hemisphere), batch 4 (the trainer's default), on synthetic graphs of
+# extent 90, every other one with a dense blob (the pattern);
+# tests/test_pattern_cnn.py's learning settings (30 epochs, lr 3e-3)
+PATTERN_BOX = 96
+PATTERN_EXTENT = 90
+PATTERN_GRAPHS = 12
+PATTERN_BATCH = 4
+PATTERN_EPOCHS, PATTERN_LR = 30, 3e-3
+PATTERN_STEPS = 10
+# the pattern step against its plain step: phase 23's f32 loss bar
+PATTERN_LOSS_RTOL = 1e-5
+# its GroupNorm layers: (stage, norm, extent, channels); groups of one
+# channel but in the last (32 groups of 2)
+PATTERN_GN = [(0, 1, 96, 8), (0, 2, 96, 16), (1, 1, 49, 16), (1, 2, 49, 32),
+              (2, 1, 25, 32), (2, 2, 25, 64)]
+# forward kernels: a remat step replays each block's forward once more
+FORWARD_KERNELS = ["conv3x3x3_fwd", "conv3x3x3_fwd_halo", "max_pool_buf_fwd",
+                   "gn_stats", "gn_apply"]
+REMAT_STEPS = 10
+
+
+def make_pattern_graphs(root, n):
+    """``n`` synthetic graphs of extent PATTERN_EXTENT (two labels, two
+    random-walk folds of 600 steps each), saved as ``L_pattern<i>.npz``;
+    every other one also holds a 'S.C._left' fold of 2000 points drawn
+    uniformly in a 24^3 corner cube, ~14% of its voxels
+    (tests/test_pattern_cnn.py's blob, 80 points in 8^3, at this extent).
+    Returns (files, labels)."""
+    from unetsulc_tpu_torch.io.container import save_graph_npz
+    from unetsulc_tpu_torch.io.graph import Vertex, make_synthetic_graph
+
+    os.makedirs(root, exist_ok=True)
+    files, labels = [], []
+    for i in range(n):
+        rng = np.random.default_rng(400 + i)
+        g = make_synthetic_graph(rng, ["F.C.M._left", "S.T.s._left"],
+                                 n_folds_per_label=2, points_per_fold=600,
+                                 extent=PATTERN_EXTENT)
+        if i % 2 == 0:
+            blob = rng.integers(6, 30, size=(2000, 3)).astype(np.int32)
+            g.add_vertex(Vertex(index=99, name="S.C._left",
+                                buckets={"aims_ss": blob}))
+        path = os.path.join(root, f"L_pattern{i}.npz")
+        save_graph_npz(g, path)
+        files.append(path)
+        labels.append(int(i % 2 == 0))
+    return files, labels
+
+
+def snapshot(model, opt):
+    """The model's parameters and the optimizer's state."""
+    import copy
+
+    return ({n: p.detach().clone() for n, p in model.named_parameters()},
+            copy.deepcopy(opt.state_dict()))
+
+
+def restore(model, opt, snap):
+    import copy
+
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            p.copy_(snap[0][n])
+    opt.load_state_dict(copy.deepcopy(snap[1]))
+
+
+def pattern_step_from(model, opt, step, snap, x, y, plain=False):
+    """One Adam step from ``snap`` (through the plain versions on the card
+    with ``plain``): (loss, gradients, parameters after)."""
+    restore(model, opt, snap)
+    with plain_ops() if plain else contextlib.nullcontext():
+        loss = step(x, y)
+    sync()
+    return (loss.item(),
+            {n: p.grad.detach().clone() for n, p in model.named_parameters()},
+            {n: p.detach().clone() for n, p in model.named_parameters()})
+
+
+def pattern_gn_rows(calls):
+    """Every GroupNorm launch of one pattern step, launched twice
+    (bit-equal), held to its plain version at phase 12's bars and timed as
+    phase 15 times the non-fused step's (against ``F.group_norm`` /
+    ``native_group_norm_backward`` and the bound)."""
+    plain_of = plain_fns()
+    rows = {n: [] for n in GN_KERNELS}
+    with torch.no_grad():
+        for name, args, kw in calls:
+            x3, groups, _, _ = gn_operands(name, args)
+            kern = lambda: dispatcher(name)(*args, **kw)  # noqa: E731
+            plain = lambda: plain_of[name](*args)  # noqa: E731
+            shape = (f"{int(x3.shape[2])} @{int(x3.shape[1])} voxels x "
+                     f"{int(x3.shape[0])}, G {groups}, {str(x3.dtype)[6:]}")
+            out = kern()
+            check(bit_equal(out, kern()),
+                  f"{name} ({shape}) differs between two runs")
+            err = gn_check_call(name, out, plain(), shape)
+            sync()
+            rows[name].append(timed_row(
+                name, shape, kern, plain, gn_library_call(name, args),
+                gn_bound(name, x3, groups), err))
+    for name, rs in rows.items():
+        ms = sum(r["ms"] for r in rs)
+        bound = sum(r["bound_ms"] for r in rs)
+        lib = sum(r["library_ms"] for r in rs)
+        print(f"  {name}: {len(rs)} launches per pattern step, {ms:.4f} ms "
+              f"({bound / ms * 100:.1f}% of its bound, {bound:.4f} ms), "
+              f"library {lib:.4f} ms", flush=True)
+    return rows
+
+
+def phase_pattern(dev):
+    """The pattern classifier at full width (PATTERN_* above): one Adam
+    step's GroupNorm launches per layer (counts zeroed just before), each
+    recorded launch held to its plain version at phase 12's bars and
+    timed; from the state after 3 warm-up steps (the head starts at zero,
+    which hides the trunk from the first gradient) the kernel step twice
+    (bit-equal loss, gradients and updated parameters) and against the
+    plain step (loss rtol PATTERN_LOSS_RTOL, gradients at phase 9's bars);
+    3 warm-up and PATTERN_STEPS timed steps, peak memory, a profile; then
+    ``train_pattern_classifier`` on the graphs (tests/test_pattern_cnn.py's
+    settings, its GroupNorm launches against the epochs'): a falling loss
+    and a best eval accuracy >= 0.9 (eval: the same graphs without
+    augmentation, a memorization check). Returns the numbers and the GN
+    rows."""
+    from unetsulc_tpu_torch import kernels
+    from unetsulc_tpu_torch.data.dataset import PatternDataset
+    from unetsulc_tpu_torch.models.pattern_cnn import (
+        PatternCNN3D, make_pattern_train_step, train_pattern_classifier)
+
+    files, labels = make_pattern_graphs(os.path.join(WORK, "pattern"),
+                                        PATTERN_GRAPHS)
+    bb = [[0, PATTERN_BOX - 1]] * 3
+    train_ds = PatternDataset(files, pattern="S.C.", bb=bb, train=True)
+    eval_ds = PatternDataset(files, pattern="S.C.", bb=bb, train=False)
+    items = [train_ds[i] for i in range(PATTERN_BATCH)]
+    check([y for _, y in items] == labels[:PATTERN_BATCH]
+          and [eval_ds[i][1] for i in range(len(files))] == labels,
+          "PatternDataset labels differ from the graphs'")
+    x = torch.from_numpy(np.stack([a for a, _ in items])).to(dev)
+    y = torch.tensor([float(b) for _, b in items], device=dev)
+    occupied = [int(a.sum()) for a, _ in items]
+    print(f"  batch {tuple(x.shape)} f32, occupied voxels {occupied}, labels "
+          f"{[int(v) for v in y.tolist()]}", flush=True)
+
+    model = PatternCNN3D(compute_dtype=torch.float32, device=dev,
+                         generator=torch.Generator().manual_seed(0))
+    opt, step = make_pattern_train_step(model, PATTERN_LR)
+    kernels.reset_launch_counts()
+    step(x, y)
+    sync()
+    launches = {k: v for k, v in kernels.launch_counts.items() if v}
+    want = {k: len(PATTERN_GN) for k in GN_KERNELS}
+    print(f"  launches per pattern step: {launches} (predicted {want})",
+          flush=True)
+    check(launches == want, f"pattern step launches {launches}, predicted "
+          f"{want}")
+    for _ in range(WARMUP - 1):
+        step(x, y)
+    snap = snapshot(model, opt)
+    lk, gk, pk = pattern_step_from(model, opt, step, snap, x, y)
+    lk2, gk2, pk2 = pattern_step_from(model, opt, step, snap, x, y)
+    differ = [n for n in gk if not (torch.equal(gk[n], gk2[n])
+                                    and torch.equal(pk[n], pk2[n]))]
+    check(lk == lk2 and not differ, "two pattern steps from one state "
+          f"differ (loss equal {lk == lk2}; parameters {differ})")
+    lp, gp, _ = pattern_step_from(model, opt, step, snap, x, y, plain=True)
+    d = param_distances(gk, gp)
+    gcos = global_cosine(gk, gp)
+    c, cn, e, en = worst(d)
+    print(f"  pattern step from the state after {WARMUP} steps: loss "
+          f"{lk:.8f} vs plain {lp:.8f} (rel {abs(lk - lp) / abs(lp):.2e}); "
+          f"two kernel steps bit-equal (loss, gradients, parameters); "
+          f"all-parameter cosine {gcos:.8f}; worst cosine {1.0 - c:.8f} "
+          f"({cn}); worst max|dg| / max|g| {e:.3g} ({en})", flush=True)
+    check(abs(lk - lp) <= PATTERN_LOSS_RTOL * abs(lp),
+          "pattern step: loss differs from the plain step")
+    check(gcos >= GLOBAL_COS, f"pattern step: all-parameter cosine {gcos}")
+    check(1.0 - c >= GRAD_COS, f"pattern step: gradient cosine {1.0 - c}")
+    check(e <= GRAD_ERR, f"pattern step: gradient error {e}")
+
+    calls = []
+    restore(model, opt, snap)
+    with recording(calls, GN_KERNELS):
+        step(x, y)
+    sync()
+    check(len(calls) == 4 * len(PATTERN_GN),
+          f"{len(calls)} GroupNorm launches recorded in a pattern step")
+    rows = pattern_gn_rows(calls)
+    del calls
+
+    restore(model, opt, snap)
+    losses = [step(x, y) for _ in range(WARMUP)]
+    losses[-1].item()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    losses += [step(x, y) for _ in range(PATTERN_STEPS)]
+    curve = torch.stack(losses).cpu()
+    step_ms = (time.perf_counter() - t) / PATTERN_STEPS * 1e3
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(bool(torch.isfinite(curve).all()), "pattern step: non-finite loss")
+    profile_step(lambda: step(x, y), "one pattern step", 8)
+    print(f"pattern step (PatternCNN3D (16, 32, 64) f32, {PATTERN_BOX}^3, "
+          f"batch {PATTERN_BATCH}, Adam): {step_ms:.2f} ms/step, peak device "
+          f"memory {peak_gb:.2f} GB ({PATTERN_STEPS} steps after {WARMUP} "
+          "warm-up); GroupNorm kernels per step "
+          + ", ".join(f"{k} {sum(r['ms'] for r in rs):.4f} ms"
+                      for k, rs in rows.items()), flush=True)
+    del model, opt, step, snap
+
+    kernels.reset_launch_counts()
+    t = time.perf_counter()
+    trained, hist = train_pattern_classifier(
+        train_ds, num_epochs=PATTERN_EPOCHS, lr=PATTERN_LR,
+        batch_size=PATTERN_BATCH, generator=torch.Generator().manual_seed(0),
+        eval_dataset=eval_ds, device=dev)
+    sync()
+    wall_s = time.perf_counter() - t
+    learn = {k: v for k, v in kernels.launch_counts.items() if v}
+    steps = -(-len(files) // PATTERN_BATCH)
+    per_epoch_fwd = (steps + len(files)) * len(PATTERN_GN)
+    want = {k: PATTERN_EPOCHS * (per_epoch_fwd if k in ("gn_stats", "gn_apply")
+                                 else steps * len(PATTERN_GN))
+            for k in GN_KERNELS}
+    print(f"train_pattern_classifier: {len(files)} graphs, "
+          f"{PATTERN_EPOCHS} epochs, lr {PATTERN_LR}, batch {PATTERN_BATCH}: "
+          f"{wall_s:.1f} s wall; loss first {hist['loss'][0]:.4f}, last "
+          f"{hist['loss'][-1]:.4f}; eval accuracy best "
+          f"{max(hist['eval_acc']):.3f}, last {hist['eval_acc'][-1]:.3f}; "
+          f"launches {learn} (predicted {want})", flush=True)
+    print("  loss by epoch: " + ", ".join(f"{v:.4f}" for v in hist["loss"]),
+          flush=True)
+    print("  eval accuracy by epoch: "
+          + ", ".join(f"{v:.3f}" for v in hist["eval_acc"]), flush=True)
+    check(learn == want, f"trainer launches {learn}, predicted {want}")
+    check(hist["loss"][-1] < hist["loss"][0], "the pattern loss did not fall")
+    check(max(hist["eval_acc"]) >= 0.9,
+          f"best eval accuracy {max(hist['eval_acc'])} < 0.9")
+    del trained
+    return dict(launches=launches, step_ms=step_ms, peak_gb=peak_gb,
+                loss_rel=abs(lk - lp) / abs(lp), global_cos=gcos,
+                cos=1.0 - c, err=e, train_s=wall_s,
+                best_acc=max(hist["eval_acc"]), loss_first=hist["loss"][0],
+                loss_last=hist["loss"][-1]), rows
+
+
+def remat_pair(make_model, make_step, args, where):
+    """One model's step with and without ``remat`` from one state (its
+    seeded init): loss, confusion counts, every gradient (lr 0) and the
+    parameters after one update (lr TRAIN_LR) bit-equal; forward kernels'
+    launches per step twice those without remat, the others equal. On a
+    difference, the parameters whose gradient or update differs are
+    printed, first in the model's order (the first block that
+    differs). Returns the launches of each."""
+    from unetsulc_tpu_torch import kernels
+    from unetsulc_tpu_torch.train.step import TrainState
+
+    out = []
+    for remat in (False, True):
+        model = make_model(remat)
+        step = make_step(model)
+        kernels.reset_launch_counts()
+        loss, counts, grads = step_grads(model, step, args)
+        launches = {k: v for k, v in kernels.launch_counts.items() if v}
+        step(TrainState.create(model, lr=TRAIN_LR), *args)
+        sync()
+        out.append((loss, counts, grads, {
+            n: p.detach().clone() for n, p in model.named_parameters()},
+            launches))
+        del model, step
+    (l0, c0, g0, p0, n0), (l1, c1, g1, p1, n1) = out
+    gdiff = [n for n in g0 if not torch.equal(g0[n], g1[n])]
+    pdiff = [n for n in p0 if not torch.equal(p0[n], p1[n])]
+    want = {k: 2 * v if k in FORWARD_KERNELS else v for k, v in n0.items()}
+    print(f"  {where}: loss {l0:.6f} without remat, {l1:.6f} with; counts "
+          f"equal {bool(torch.equal(c0, c1))}; gradients differing "
+          f"{len(gdiff)} of {len(g0)}; updated parameters differing "
+          f"{len(pdiff)}; launches {n0} without, {n1} with", flush=True)
+    for n in gdiff[:5]:
+        print(f"    {n}: gradient max |diff| "
+              f"{(g0[n] - g1[n]).abs().max().item():.3g} of max |g| "
+              f"{g0[n].abs().max().item():.3g}", flush=True)
+    check(l0 == l1 and torch.equal(c0, c1) and not gdiff and not pdiff,
+          f"{where}: remat changed the step (first differing: "
+          f"{(gdiff + pdiff)[:1]})")
+    check(n1 == want, f"{where}: launches with remat {n1}, predicted {want}")
+    return n0, n1
+
+
+def phase_remat(dev):
+    """``remat`` on the flagship's routes: the fused step on phase 9's
+    batch (bf16), phase 14's non-fused step and one space-2 ``forward_sp``
+    step (every shard on this card), each bit-equal with and without remat
+    (:func:`remat_pair`); then the fused step with and without remat timed
+    in turns (3 warm-up and REMAT_STEPS timed steps, twice each), peak
+    memory beside each."""
+    from unetsulc_tpu_torch.models.unet3d import UNet3D
+    from unetsulc_tpu_torch.parallel import shard_x
+    from unetsulc_tpu_torch.train.step import (TrainState, make_train_step,
+                                               make_train_step_sp)
+
+    x, labels = make_batch(dev)
+
+    def flagship(remat):
+        return UNet3D(in_channels=1, out_channels=CLASSES,
+                      init_channel_number=64, device=dev, seed=0, remat=remat)
+
+    def single(m):
+        return make_train_step(m, CLASSES, momentum=0.9)
+
+    mesh = sp_mesh(2)
+    out = {
+        "fused": remat_pair(flagship, single, (x, labels),
+                            "fused step, bf16"),
+        "nonfused": remat_pair(lambda r: nonfused_model(dev, remat=r), single,
+                               (x, labels), "non-fused step (phase 14's)"),
+        "sp": remat_pair(flagship,
+                         lambda m: make_train_step_sp(m, CLASSES, mesh,
+                                                      momentum=0.9),
+                         (shard_x(x, mesh), shard_x(labels, mesh)),
+                         "space-2 forward_sp step, one card"),
+    }
+    times = {False: [], True: []}
+    for remat in (False, True, False, True):
+        m = flagship(remat)
+        ms, gb, curve = timed_steps(single(m), TrainState.create(m, lr=TRAIN_LR),
+                                    (x, labels), REMAT_STEPS)
+        check(bool(torch.isfinite(curve).all()), "remat timing: non-finite")
+        times[remat].append((ms, gb))
+        del m
+    for remat, ts in times.items():
+        print(f"fused train step 96^3 flagship bf16 {'with' if remat else 'without'}"
+              f" remat: " + ", ".join(f"{ms:.2f} ms/step ({gb:.2f} GB peak)"
+                                       for ms, gb in ts)
+              + f" ({REMAT_STEPS} steps after {WARMUP} warm-up, two turns)",
+              flush=True)
+    out["times"] = times
+    return out
+
 
 def main():
     if not torch.cuda.is_available():
@@ -3421,6 +3779,12 @@ def main():
     rows.update(gn_shard_rows(gn_calls))
     del gn_calls
     print(f"  phase 23 took {time.time() - t23:.1f} s", flush=True)
+    print("phase 24: the pattern classifier at full width; remat on the "
+          "fused, non-fused and sp routes", flush=True)
+    t24 = time.time()
+    pattern, pattern_rows = phase_pattern(dev)
+    remat = phase_remat(dev)
+    print(f"  phase 24 took {time.time() - t24:.1f} s", flush=True)
 
     gn_src = "unetsulc_tpu_torch/csrc/group_norm.cu"
     gn_cover = "one 96^3 non-fused flagship training step"
@@ -3517,6 +3881,15 @@ def main():
                     "copy_ms"):
             if key in rs[0]:
                 extra[key] = sum(r[key] for r in rs)
+        if name in GN_KERNELS:
+            prs = pattern_rows[name]
+            extra.update(
+                launches_pattern_step=pattern["launches"][name],
+                pattern_step_ms=sum(r["ms"] for r in prs),
+                pattern_step_bound_ms=sum(r["bound_ms"] for r in prs),
+                pattern_step_library_ms=sum(r["library_ms"] for r in prs))
+        if name in remat["fused"][1]:
+            extra["launches_remat_step"] = remat["fused"][1][name]
         line.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces,
@@ -3581,7 +3954,13 @@ def main():
           + f" against the single-device non-fused step "
           f"{halo_runs[2]['single_ms']:.2f} ms "
           f"({halo_runs[2]['single_gb']:.2f} GB)"
-          + f"; total script {time.time() - t0:.1f} s", flush=True)
+          + f"; pattern step {pattern['step_ms']:.2f} ms "
+          f"({pattern['peak_gb']:.2f} GB), trainer {pattern['train_s']:.1f} s "
+          f"to best eval accuracy {pattern['best_acc']:.3f}; fused step with "
+          "remat " + ", ".join(f"{ms:.2f}" for ms, _ in remat["times"][True])
+          + " ms against " + ", ".join(f"{ms:.2f}"
+                                       for ms, _ in remat["times"][False])
+          + f" without; total script {time.time() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": line}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

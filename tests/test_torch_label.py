@@ -126,6 +126,33 @@ def test_labelling_and_device_vote_match_jax(model_dir):
         np.testing.assert_array_equal(tcut, jcut)
 
 
+def test_host_vote_thresholds_match_jax(model_dir):
+    """``tpu.device_vote: false`` (the scores fetched and cut on the host by
+    ``ops.cutting.cutting``) through ``test_thresholds`` on both graphs
+    (each its own uncut graph): every threshold's (1 - ESI) * 100 equal
+    to the JAX labeller's with ``device_vote: false``, and to the port's
+    device vote."""
+    _, graphs, dict_model, _ = model_dir
+    data = {g: extract_data(read_graph(g)) for g in graphs}
+    scores = {}
+    for name, cls, cfg, kw, vote in (
+            ("jax", JaxLabeller, JaxTpuConfig, {}, False),
+            ("host", SulciLabeller, TpuConfig, {"device": "cpu"}, False),
+            ("device", SulciLabeller, TpuConfig, {"device": "cpu"}, True)):
+        m = cls([], "L", dict_model=dict_model,
+                dict_bck2={g: d["bck2"] for g, d in data.items()},
+                dict_names={g: d["names"] for g, d in data.items()},
+                sulci_side_list=LABELS,
+                tpu=cfg(compute_dtype="float32", device_vote=vote), **kw)
+        m.load_saved_model(dict(dict_model))
+        m.test_thresholds(graphs, graphs, THRESHOLDS, save_results=False)
+        scores[name] = {th: list(v) for th, v in m.dict_scores.items()}
+    assert sorted(scores["host"]) == THRESHOLDS
+    assert all(len(v) == len(graphs) for v in scores["host"].values())
+    assert scores["host"] == scores["jax"]
+    assert scores["host"] == scores["device"]
+
+
 def _load_jax_cli():
     path = Path(__file__).resolve().parents[1] / "label.py"
     spec = importlib.util.spec_from_file_location("jax_label_cli", path)

@@ -117,9 +117,11 @@ class TpuConfig:
     data rows of the mesh, ``make_train_step_dp``; 0 and 1 mean none),
     ``fold_parallel`` (that many CV folds at once, each on its own group
     of the cards), ``prefetch``, ``reset_momentum_on_divide``,
-    ``checkpoint_every``, ``resume``, ``evaluate``, ``augment`` and
-    ``sp_shard_middle`` / ``sp_shard_deep``; ``pallas_groupnorm``,
-    ``sp_pallas_cpu`` and ``remat`` configure nothing in the port."""
+    ``checkpoint_every``, ``resume``, ``evaluate``, ``augment``,
+    ``sp_shard_middle`` / ``sp_shard_deep`` and ``remat`` (the model's
+    ``remat``: each encoder and decoder recomputed in the backward, on
+    every route); ``pallas_groupnorm`` and ``sp_pallas_cpu`` configure
+    nothing in the port."""
 
     # compute dtype of the convs and matmuls ('bfloat16' or 'float32');
     # GroupNorm statistics and parameters stay float32 either way
@@ -141,6 +143,7 @@ class TpuConfig:
     # host. False = fetch the scores and cut on the host (ops/cutting.py)
     device_vote: bool = True
     reset_momentum_on_divide: bool = True
+    # recompute each encoder and decoder in the backward (memory for work)
     remat: bool = False
     checkpoint_every: int = 0
     resume: bool = False

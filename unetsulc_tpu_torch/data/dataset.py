@@ -1,7 +1,8 @@
-"""Dataset class: graph files -> dense voxel samples.
+"""Dataset classes: graph files -> dense voxel samples.
 
-Copy of the JAX package's ``SulciDataset`` (ref dataset.py:15-91) with the
-same construction signature and caching behavior:
+Copies of the JAX package's ``SulciDataset`` and ``PatternDataset`` (ref
+dataset.py:15-170) with the same construction signatures and caching
+behavior:
 
 * items are numpy arrays in channels-last layout (X, Y, Z, C);
 * augmentation draws from an explicit per-(epoch, index) Generator derived
@@ -16,13 +17,16 @@ same construction signature and caching behavior:
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
 from unetsulc_tpu_torch.data.extract import extract_data
 from unetsulc_tpu_torch.data.geometry import (
+    apply_bounding_box,
     augment_points,
+    random_rotation,
+    rotate_points,
     rotation_size_bound,
 )
 from unetsulc_tpu_torch.data.voxelize import names_to_ids, voxelize
@@ -167,3 +171,88 @@ class SulciDataset:
                     size = np.maximum(size, np.max(aug, axis=0) + 1)
             self.epoch = saved_epoch
         return size.astype(int)
+
+
+class PatternDataset:
+    """Binary pattern-presence classification dataset (ref dataset.py:94-170).
+
+    Items: ``(input, label)`` with input (X, Y, Z, 1) float32 cropped to a
+    fixed bounding box and label in {0, 1} (or provided labels / NaN).
+    """
+
+    ROT_ANGLE = math.pi / 40  # ref dataset.py:106
+    TR_SIGMA = 2  # ref dataset.py:107
+
+    def __init__(
+        self,
+        gfile_list: Sequence[str],
+        pattern: Optional[str],
+        bb,
+        train: bool = True,
+        dict_bck: Optional[dict] = None,
+        dict_label: Optional[dict] = None,
+        labels: Optional[List] = None,
+        seed: int = 0,
+    ):
+        self.gfile_list = list(gfile_list)
+        self.labels = labels
+        self.pattern = pattern
+        self.bb = np.asarray(bb)
+        self.size = self.bb[:, 1] - self.bb[:, 0] + 1
+        self.tr = self.bb[:, 0]
+        self.train = train
+        self.dict_bck = dict_bck if dict_bck is not None else {}
+        self.dict_label = dict_label if dict_label is not None else {}
+        self.seed = seed
+        self.epoch = 0
+
+    def set_epoch(self, epoch: int) -> None:
+        self.epoch = int(epoch)
+
+    def _rng(self, index: int) -> np.random.Generator:
+        return np.random.default_rng(
+            np.random.SeedSequence([self.seed, self.epoch, index, 1])
+        )
+
+    def __getitem__(self, index: int):
+        gfile = self.gfile_list[index]
+        if gfile in self.dict_bck:
+            bck = self.dict_bck[gfile]
+            label = self.dict_label[gfile]
+        else:
+            # hemisphere from the leading L/R of the file basename
+            # (ref dataset.py:134-135)
+            base = gfile[gfile.rfind("/") + 1 : gfile.rfind("/") + 2]
+            flip = base == "R"
+            graph = read_graph(gfile)
+            data = extract_data(graph, flip=flip)
+            bck = data["bck2"]
+            if self.labels is not None:
+                label = self.labels[index]
+            elif self.pattern is None:
+                label = float("nan")
+            else:
+                label = int(
+                    any(str(n).startswith(self.pattern) for n in data["names"])
+                )
+            self.dict_bck[gfile] = bck
+            self.dict_label[gfile] = label
+
+        bck = np.asarray(bck)
+        if self.train:
+            rng = self._rng(index)
+            center = (np.max(bck, axis=0) - np.min(bck, axis=0)) / 2
+            transrot = random_rotation(center, self.ROT_ANGLE, rng)
+            bck = rotate_points(bck, transrot)
+            # Gaussian integer jitter (ref dataset.py:119-123)
+            bck = bck + np.round(rng.normal(0, self.TR_SIGMA, size=3)).astype(int)
+
+        bck, _ = apply_bounding_box(bck, self.bb)
+        bck = bck - self.tr
+        vol = np.zeros((*self.size, 1), dtype=np.float32)
+        if len(bck):
+            vol[bck[:, 0], bck[:, 1], bck[:, 2], 0] = 1.0
+        return vol, label
+
+    def __len__(self) -> int:
+        return len(self.gfile_list)

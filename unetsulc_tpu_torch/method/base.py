@@ -197,6 +197,7 @@ class SulciLabeller:
             ),
             device=self.device,
             fused_blocks=self.tpu.pallas_blocks,
+            remat=self.tpu.remat,
         )
         kw.update(over)
         return UNet3D(**kw)

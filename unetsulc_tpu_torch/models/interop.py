@@ -15,6 +15,13 @@ The port's own copy of the mapping in ``unetsulc_tpu/models/torch_interop.py``
         ->  ``decoders.0.upsample.weight`` (I, O, kX, kY, kZ), the
         ConvTranspose3d layout, no flip (``interpolate=False``)
 
+The pattern classifier's (:func:`pattern_state_dict_from_jax_params`):
+
+    flax ``params['stages_0']['conv1']['kernel']`` -> ``stages.0.conv1.weight``
+        (the same transpose); ``...['norm1_scale']`` -> ``stages.0.norm1.weight``
+    flax ``params['head']['kernel']`` (2C, 1) -> ``head.weight`` (1, 2C);
+    ``params['head']['bias']`` -> ``head.bias``
+
 An ``.mdsm`` file IS a ``torch.save``d state_dict (ref
 pattern_class.py:295-305), so loading one is ``torch.load``.
 """
@@ -70,16 +77,40 @@ def _torch_key(path: Tuple[str, ...]) -> Tuple[str, Optional[Tuple[int, ...]]]:
     raise KeyError(f"unrecognized flax param block: {block}")
 
 
-def state_dict_from_jax_params(params: dict) -> Dict[str, torch.Tensor]:
-    """Flax UNet3D params (nested dict of numpy arrays) -> the port's f32
-    ``state_dict``."""
+def _pattern_key(path: Tuple[str, ...]) -> Tuple[str, Optional[Tuple[int, ...]]]:
+    """:func:`_torch_key` of a PatternCNN3D parameter: a ``stages_<i>``
+    DoubleConv's as a UNet block's, the Dense head's kernel transposed."""
+    block = path[0]
+    if block == "head":
+        return (("head.weight", (1, 0)) if path[1] == "kernel"
+                else ("head.bias", None))
+    if not block.startswith("stages_"):
+        raise KeyError(f"unrecognized flax param block: {block}")
+    key, perm = _torch_key(("encoders_0", "double_conv") + path[1:])
+    return key.replace("encoders.0.double_conv", f"stages.{block[7:]}"), perm
+
+
+def _state_dict(params: dict, torch_key) -> Dict[str, torch.Tensor]:
     out: Dict[str, torch.Tensor] = {}
     for path, arr in _flatten(params):
-        key, perm = _torch_key(path)
+        key, perm = torch_key(path)
         if perm is not None:
             arr = np.transpose(arr, perm)
         out[key] = torch.from_numpy(np.array(arr, dtype=np.float32, order="C"))
     return out
+
+
+def state_dict_from_jax_params(params: dict) -> Dict[str, torch.Tensor]:
+    """Flax UNet3D params (nested dict of numpy arrays) -> the port's f32
+    ``state_dict``."""
+    return _state_dict(params, _torch_key)
+
+
+def pattern_state_dict_from_jax_params(params: dict) -> Dict[str, torch.Tensor]:
+    """Flax PatternCNN3D params (nested dict of numpy arrays) -> the port's
+    f32 ``state_dict`` (``stages.<i>.conv1.weight``, ..., ``head.weight``
+    (1, 2C))."""
+    return _state_dict(params, _pattern_key)
 
 
 def load_mdsm(path: str) -> Dict[str, torch.Tensor]:

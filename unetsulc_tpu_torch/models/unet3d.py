@@ -45,8 +45,9 @@ parameters, same ``state_dict``.
   'g' that starts with the conv); GroupNorm is
   :func:`~unetsulc_tpu_torch.ops.groupnorm.group_norm`, four hand-written
   kernels on the card;
-* MaxPool3d(2, 2, padding 1) is ``F.max_pool3d``, whose gradient goes to
-  the first maximum of a window, as JAX's ``select_and_scatter``;
+* MaxPool3d(2, 2, padding 1) is ``F.max_pool3d``
+  (:func:`~unetsulc_tpu_torch.ops.pooling.max_pool_3d`), whose gradient
+  goes to the first maximum of a window, as JAX's ``select_and_scatter``;
 * dropout after each encoder in train mode (:func:`dropout`);
 * decoders upsample by ConvTranspose3d(k 3, stride 2, padding 1, output
   padding 1), cropped at the leading corner to the skip's extent
@@ -66,6 +67,13 @@ stays sharded, the deep ones split unevenly.
 In f32 the non-fused convs and matmuls run with TF32 off
 (:func:`~unetsulc_tpu_torch.ops.conv_fused.no_tf32`, the counterpart of
 ``Precision.HIGHEST``).
+
+With ``remat`` (the JAX model's field of that name, ``nn.remat`` over each
+Encoder and Decoder there), every route runs each encoder's and decoder's
+work under ``torch.utils.checkpoint`` (:func:`remat_call`): the backward
+runs that block's forward again, kernels included, instead of keeping its
+activations. Dropout stays outside the blocks, as there, so no mask is
+drawn twice.
 
 Routing (:meth:`UNet3D.fused_eligible`) follows the JAX package's
 ``_pallas_eligible``: the fused path exactly for ``fused_blocks`` (its
@@ -88,15 +96,17 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import List, Optional
+from typing import Callable, List, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from unetsulc_tpu_torch.device import resolve_device
 from unetsulc_tpu_torch.ops import conv_fused as cf
 from unetsulc_tpu_torch.ops.groupnorm import group_norm, group_norm_sharded
+from unetsulc_tpu_torch.ops.pooling import max_pool_3d
 from unetsulc_tpu_torch.ops.resize import resize_trilinear, resize_trilinear_buf
 from unetsulc_tpu_torch.parallel import halo
 from unetsulc_tpu_torch.parallel import sp_fused as sp
@@ -147,13 +157,6 @@ def conv3x3x3(x, weight: torch.Tensor, bias: torch.Tensor,
     return out.permute(0, 2, 3, 4, 1) + bias.to(dtype)
 
 
-def max_pool_3d(x: torch.Tensor) -> torch.Tensor:
-    """MaxPool3d(2, 2, padding 1) on (N, X, Y, Z, C): extent d -> d//2 + 1,
-    pads count as -inf."""
-    return F.max_pool3d(x.permute(0, 4, 1, 2, 3), 2, 2, padding=1).permute(
-        0, 2, 3, 4, 1)
-
-
 def upsample_transpose(x: torch.Tensor, weight: torch.Tensor,
                        bias: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """ConvTranspose3d(k 3, stride 2, padding 1, output padding 1) of a
@@ -172,6 +175,62 @@ def dropout(x: torch.Tensor, p: float, generator: torch.Generator) -> torch.Tens
     which lives on x's device."""
     keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
     return torch.where(keep, x / (1.0 - p), 0)
+
+
+@torch.no_grad()
+def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
+    """torch's default distributions for every Conv3d and ConvTranspose3d
+    of ``module`` (kaiming-uniform weights, uniform biases), drawn on the
+    CPU from ``generator`` so that a seed gives the same weights on every
+    device; GroupNorm 1/0."""
+    for m in module.modules():
+        if isinstance(m, (nn.Conv3d, nn.ConvTranspose3d)):
+            # weight[0].numel() is torch's fan_in for both layouts
+            bound = m.weight[0].numel() ** -0.5
+            for p in (m.weight, m.bias):
+                p.copy_(torch.empty(p.shape).uniform_(
+                    -bound, bound, generator=generator))
+        elif isinstance(m, nn.GroupNorm):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+
+
+class _Bound(nn.Module):
+    """``fn`` as the forward of a module that holds ``block``, so that
+    ``torch.func.functional_call`` can hand ``fn`` the block's parameters."""
+
+    def __init__(self, block: nn.Module, fn: Callable):
+        super().__init__()
+        self.block, self.fn = block, fn
+
+    def forward(self, *args):
+        return self.fn(*args)
+
+
+def remat_call(block: nn.Module, fn: Callable, *args, precision=None):
+    """``fn(*args)``, one encoder's or decoder's work, under
+    ``torch.utils.checkpoint`` (non-reentrant): its saved tensors are
+    dropped and the backward runs ``fn`` again on the same arguments, in
+    the context ``precision()`` when given. Nothing random runs inside a
+    block, so no RNG state is kept. The parameters of ``block`` are the
+    ones this call sees: under ``torch.func.functional_call`` (a replica
+    on another card, ``train/step.py``) the replay runs after the call
+    has put the block's own back, so it is handed the call's again."""
+    params = dict(block.named_parameters())
+
+    def run(*a):
+        if all(p is q for p, q in zip(block.parameters(), params.values())):
+            return fn(*a)
+        return torch.func.functional_call(
+            _Bound(block, fn), {f"block.{n}": p for n, p in params.items()},
+            a)
+
+    def contexts():
+        return (contextlib.nullcontext(),
+                contextlib.nullcontext() if precision is None else precision())
+
+    return checkpoint(run, *args, use_reentrant=False,
+                      preserve_rng_state=False, context_fn=contexts)
 
 
 @dataclasses.dataclass
@@ -452,7 +511,9 @@ class UNet3D(nn.Module):
     ``sp_shard_middle`` and ``sp_shard_deep`` shape :meth:`forward_sp`'s
     partition (the JAX model's fields of those names): shard the pooled
     level 1, and level 2 where the slab splits twice; neither changes the
-    parameters."""
+    parameters. ``remat`` recomputes each encoder and decoder in the
+    backward (module docstring); it changes memory, not a bit of the
+    result."""
 
     def __init__(
         self,
@@ -470,6 +531,7 @@ class UNet3D(nn.Module):
         fused_blocks: bool = True,
         sp_shard_middle: bool = True,
         sp_shard_deep: bool = True,
+        remat: bool = False,
     ):
         super().__init__()
         device = resolve_device(device)
@@ -489,6 +551,7 @@ class UNet3D(nn.Module):
         self.fused_blocks = fused_blocks
         self.sp_shard_middle = sp_shard_middle
         self.sp_shard_deep = sp_shard_deep
+        self.remat = remat
         i = init_channel_number
         meta = torch.device("meta")
         self.encoders = nn.ModuleList(
@@ -510,20 +573,7 @@ class UNet3D(nn.Module):
                 for n in range(num_conv)
             ))
         self.to_empty(device=device)
-        self.init_parameters(torch.Generator().manual_seed(seed))
-
-    @torch.no_grad()
-    def init_parameters(self, generator: torch.Generator) -> None:
-        for m in self.modules():
-            if isinstance(m, (nn.Conv3d, nn.ConvTranspose3d)):
-                # weight[0].numel() is torch's fan_in for both layouts
-                bound = m.weight[0].numel() ** -0.5
-                for p in (m.weight, m.bias):
-                    p.copy_(torch.empty(p.shape).uniform_(
-                        -bound, bound, generator=generator))
-            elif isinstance(m, nn.GroupNorm):
-                m.weight.fill_(1.0)
-                m.bias.zero_()
+        init_parameters(self, torch.Generator().manual_seed(seed))
 
     @property
     def device(self) -> torch.device:
@@ -560,6 +610,16 @@ class UNet3D(nn.Module):
             return cf.no_tf32()
         return contextlib.nullcontext()
 
+    def _block(self, block: nn.Module, fn: Callable, *args,
+               nonfused: bool = False):
+        """``fn(*args)``, the work of encoder or decoder ``block``: through
+        :func:`remat_call` with ``remat`` where autograd records, the
+        replay in :meth:`precision` on the non-fused routes."""
+        if not (self.remat and torch.is_grad_enabled()):
+            return fn(*args)
+        return remat_call(block, fn, *args,
+                          precision=self.precision if nonfused else None)
+
     def _head(self, h: torch.Tensor) -> torch.Tensor:
         """The 1x1x1 chain as channel matmuls in the compute dtype, on h's
         device."""
@@ -574,10 +634,10 @@ class UNet3D(nn.Module):
         v = x.to(dt)
         skips = []
         for enc in self.encoders:
-            v = enc.fused(v, dt)
+            v = self._block(enc, enc.fused, v, dt)
             skips.insert(0, v)
         for dec, skip in zip(self.decoders, skips[1:]):
-            v = dec.fused(skip, v, dt)
+            v = self._block(dec, dec.fused, skip, v, dt)
         # materialize the last GroupNorm (f32, cast to the compute dtype)
         h = v.buf if padded_output else cf.unpad_from_geom(v.buf, v.g)
         return self._head(cf.apply_affine(h, v.aff))
@@ -592,12 +652,12 @@ class UNet3D(nn.Module):
         v = x.to(dt)
         skips = []
         for enc in self.encoders:
-            v = enc.nonfused(v, dt)
+            v = self._block(enc, enc.nonfused, v, dt, nonfused=True)
             if drop:
                 v = dropout(v, self.dropout, dropout_generator)
             skips.insert(0, v)
         for dec, skip in zip(self.decoders, skips[1:]):
-            v = dec.nonfused(skip, v, dt)
+            v = self._block(dec, dec.nonfused, skip, v, dt, nonfused=True)
         return self._head(v)
 
     def _check_slabs(self, xs: List[torch.Tensor]) -> None:
@@ -643,21 +703,39 @@ class UNet3D(nn.Module):
         deep = mid and self.sp_shard_deep and s % 4 == 0 and s // 4 >= 4
         e0, e1, e2, e3 = self.encoders
         d0, d1, d2 = self.decoders
-        s0 = e0.fused_sp([x.to(dt) for x in xs], dt, None)
-        if mid:
-            s1 = e1.fused_sp(s0, dt, sp.sp_pool_local)
-        else:
+
+        def enc1(s0):
+            if mid:
+                return e1.fused_sp(s0, dt, sp.sp_pool_local)
             buf, g = sp.sp_pool_gather([v.buf for v in s0],
                                        [v.aff for v in s0], s0[0].g)
-            s1 = e1.double_conv.fused(FusedVol(buf, None, g), dt)
-        if deep:
-            s2 = e2.fused_sp(s1, dt, sp.sp_pool_local_mid)
-        else:
-            s2 = e2.fused(sp_gather(s1) if mid else s1, dt)
-        v = e3.fused(sp_gather(s2) if deep else s2, dt)
-        v = d0.fused_sp(s2, v, dt, mid=True) if deep else d0.fused(s2, v, dt)
-        v = d1.fused_sp(s1, v, dt, mid=True) if mid else d1.fused(s1, v, dt)
-        v = d2.fused_sp(s0, v, dt, mid=False)
+            return e1.double_conv.fused(FusedVol(buf, None, g), dt)
+
+        def enc2(s1):
+            if deep:
+                return e2.fused_sp(s1, dt, sp.sp_pool_local_mid)
+            return e2.fused(sp_gather(s1) if mid else s1, dt)
+
+        def dec0(s2, v):
+            if deep:
+                return d0.fused_sp(s2, v, dt, mid=True)
+            return d0.fused(s2, v, dt)
+
+        def dec1(s1, v):
+            if mid:
+                return d1.fused_sp(s1, v, dt, mid=True)
+            return d1.fused(s1, v, dt)
+
+        # each encoder and decoder one block, its gathers inside, as the
+        # JAX model's sp_gather_axis encoders
+        s0 = self._block(e0, e0.fused_sp, [x.to(dt) for x in xs], dt, None)
+        s1 = self._block(e1, enc1, s0)
+        s2 = self._block(e2, enc2, s1)
+        v = self._block(e3, lambda s: e3.fused(sp_gather(s) if deep else s,
+                                               dt), s2)
+        v = self._block(d0, dec0, s2, v)
+        v = self._block(d1, dec1, s1, v)
+        v = self._block(d2, d2.fused_sp, s0, v, dt, False)
         outs = []
         for u in v:
             h = u.buf if padded_output else cf.unpad_from_geom(u.buf, u.g)
@@ -696,13 +774,14 @@ class UNet3D(nn.Module):
             v = [x.to(dt) for x in xs]
             skips = []
             for enc in self.encoders:
-                v = enc.nonfused_sp(v, dt)
+                v = self._block(enc, enc.nonfused_sp, v, dt, nonfused=True)
                 if drop:
                     v = halo.dropout_spatial(v, self.dropout,
                                              dropout_generator)
                 skips.insert(0, v)
             for dec, skip in zip(self.decoders, skips[1:]):
-                v = dec.nonfused_sp(skip, v, dt)
+                v = self._block(dec, dec.nonfused_sp, skip, v, dt,
+                                nonfused=True)
             outs = [self._head(u) for u in v]
         if apply_final_activation is None:
             apply_final_activation = not train

@@ -1,8 +1,10 @@
-"""Trilinear resize, torch ``align_corners=False``.
+"""Trilinear resize, torch ``align_corners=False``, and the nearest-neighbour
+resize.
 
-Counterparts of ``resize_trilinear`` and ``resize_trilinear_buf`` in
-``unetsulc_tpu/ops/resize.py``: each axis is contracted with a static
-(out, in) interpolation matrix, with the half-pixel source coordinates
+Counterparts of ``resize_trilinear``, ``resize_trilinear_buf`` and
+``resize_nearest`` in ``unetsulc_tpu/ops/resize.py``. The trilinear ones
+contract each axis with a static (out, in) interpolation matrix, with the
+half-pixel source coordinates
 
     src = clamp((dst + 0.5) * in/out - 0.5, 0, in-1).
 
@@ -87,4 +89,22 @@ def resize_trilinear_buf(buf: torch.Tensor, g_in, g_out) -> torch.Tensor:
         if i_in != i_out:
             x = _contract(x, axis, _interp_matrix_on(
                 i_in, i_out, True, buf.device, buf.dtype))
+    return x
+
+
+def resize_nearest(x: torch.Tensor, target) -> torch.Tensor:
+    """Nearest-neighbour resize of (N, X, Y, Z, C) to spatial ``target``
+    (torch ``mode='nearest'``: src = floor(dst * in/out)), the source
+    indices computed in float64 numpy as the JAX function's, then gathered
+    with ``index_select`` (``F.interpolate`` computes them in f32, which
+    picks another row at some ratios)."""
+    if x.dim() != 5:
+        raise ValueError(f"expected (N, X, Y, Z, C), got {tuple(x.shape)}")
+    for axis, out_size in zip((1, 2, 3), target):
+        in_size, out_size = int(x.shape[axis]), int(out_size)
+        if in_size == out_size:
+            continue
+        idx = np.floor(np.arange(out_size, dtype=np.float64)
+                       * (in_size / out_size)).astype(np.int64)
+        x = torch.index_select(x, axis, torch.from_numpy(idx).to(x.device))
     return x
