@@ -1,0 +1,14 @@
+"""Device milliseconds per window step in the train step's ``update`` (SGD
+with momentum over the trainable parameters): from the device reaching
+the phase's entry event to its reaching the exit event, summed over the
+step's volumes, idle inside included (:mod:`benchmark.program_spans`)."""
+
+from benchmark import program_spans
+
+
+def start(run):
+    return program_spans.attach(run)
+
+
+def read(ctx):
+    return program_spans.device_ms(ctx, "update")

@@ -11,7 +11,6 @@ in f32, so the plain versions must equal the JAX kernels exactly.
 
 import ast
 import functools
-import json
 from pathlib import Path
 
 import jax
@@ -21,6 +20,7 @@ import pytest
 import torch
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
+from torch.profiler import ProfilerActivity, profile
 
 from unetsulc_tpu_torch import kernels
 from unetsulc_tpu_torch.tools import mxu_probe
@@ -144,18 +144,13 @@ def test_build_bound_formula():
     assert us == pytest.approx(10 * 10976 * 128 * 2 / (128 * 132 * 1.98e9) * 1e6)
 
 
-def test_epoch_timer_and_trace(tmp_path, monkeypatch):
+def test_epoch_timer_and_trace():
     timer = profiling.EpochTimer()
     timer.add_batch(10)
     timer.add_batch(5)
     perf = timer.finish()
     assert perf["voxels"] == 15 and perf["voxels_per_sec"] > 0
-    monkeypatch.delenv("UNETSULC_TRACE_DIR", raising=False)
-    with profiling.trace() as prof:
-        assert prof is None
-    with profiling.trace(str(tmp_path / "tr")) as prof:
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
         torch.ones(8).sum()
-    files = list((tmp_path / "tr").glob("trace-*.json"))
-    assert len(files) == 1 and "traceEvents" in json.loads(files[0].read_text())
     # a CPU-only run traced no device kernel
     assert profiling.summarize_trace(prof) == []

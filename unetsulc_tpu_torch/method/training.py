@@ -190,10 +190,14 @@ class TrainingSulciLabeller(SulciLabeller):
         at the end of the phase: the steps never wait for the host.
         ``spans`` times the phase's parts on the host: the dataset's
         (``SulciDataset``), the pipeline's (``device_iterator``), the
-        steps' dispatch (``step``) and the end-of-phase ``fetch``."""
+        steps' dispatch (``step``), within it a train step's phases
+        (``state.spans``, ``train/step.py``), and the end-of-phase
+        ``fetch``."""
         timer = EpochTimer()
         loss_terms, count_terms, extents = [], [], set()
         dataset.spans = spans
+        if phase == "train":
+            state.spans = spans
         batches = iterate_batches(dataset, batch_size, img_size, epoch=epoch,
                                   alloc_batch=alloc_batch)
         for inputs, labels, real in device_iterator(

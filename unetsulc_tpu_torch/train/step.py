@@ -68,6 +68,7 @@ from unetsulc_tpu_torch.ops.esi import confusion_counts
 from unetsulc_tpu_torch.ops.losses import cross_entropy_sum
 from unetsulc_tpu_torch.parallel.mesh import Mesh
 from unetsulc_tpu_torch.train import freeze
+from unetsulc_tpu_torch.utils.profiling import HostSpans, span
 
 
 def _match_labels(logits: torch.Tensor, labels: torch.Tensor,
@@ -146,27 +147,45 @@ def _finish(state: "TrainState") -> None:
     state.step += 1
 
 
-def _train_volumes(forward, model, x, lb, denom, home, gen, num_classes: int,
-                   background: int):
-    """The forwards and backwards of one chunk of a batch (``_volumes``:
-    one per volume on the fused path, one for the chunk otherwise), each
-    loss the NLL sum over the whole batch's valid count ``denom``, so the
-    gradients add up in the parameters to the batch mean's. Returns the
-    chunk's (loss, confusion counts) on ``home``."""
-    loss = torch.zeros((), dtype=torch.float32, device=home)
-    counts = torch.zeros((3, num_classes), dtype=torch.int32, device=home)
-    for v in _volumes(model, x):
-        logits = forward(x[v], train=True, padded_output=True,
-                         dropout_generator=gen)
-        lbl = _match_labels(logits, lb[v], background)
-        nll, _ = cross_entropy_sum(logits, lbl, background)
-        part = nll.to(home) / denom
-        if part.requires_grad:
-            with model.precision():
-                part.backward()
-        loss = loss + part.detach()
-        counts = counts + confusion_counts(
-            lbl, logits.detach().argmax(-1), num_classes, background).to(home)
+def _zeros(num_classes: int, home):
+    """A step's loss and confusion counts before its first volume."""
+    return (torch.zeros((), dtype=torch.float32, device=home),
+            torch.zeros((3, num_classes), dtype=torch.int32, device=home))
+
+
+def _train_volumes(forward, model, x, lb, vols: List[slice], denom, home, gen,
+                   num_classes: int, background: int, loss, counts,
+                   spans: Optional[HostSpans] = None,
+                   sid: Optional[int] = None):
+    """The forwards and backwards of one chunk of a batch, one per slice of
+    ``vols`` (``_volumes``: one per volume on the fused path, one for the
+    chunk otherwise), each loss the NLL sum over the whole batch's valid
+    count ``denom``, so the gradients add up in the parameters to the
+    batch mean's. Returns ``loss`` and ``counts`` (on ``home``) with the
+    chunk's added. Each volume's phases are spans of step ``sid`` in
+    ``spans``: ``forward``, ``loss`` (labels, cross-entropy, the
+    division), ``backward`` and ``counts`` (the loss's sum, the confusion
+    counts, and the volume's tensors let go, so that freeing them falls in
+    a phase)."""
+    dev = x.device
+    for v in vols:
+        with span(spans, "forward", sid, dev):
+            logits = forward(x[v], train=True, padded_output=True,
+                             dropout_generator=gen)
+        with span(spans, "loss", sid, dev):
+            lbl = _match_labels(logits, lb[v], background)
+            nll, _ = cross_entropy_sum(logits, lbl, background)
+            part = nll.to(home) / denom
+        with span(spans, "backward", sid, dev):
+            if part.requires_grad:
+                with model.precision():
+                    part.backward()
+        with span(spans, "counts", sid, dev):
+            loss = loss + part.detach()
+            counts = counts + confusion_counts(
+                lbl, logits.detach().argmax(-1), num_classes,
+                background).to(home)
+            del logits, lbl, nll, part
     return loss, counts
 
 
@@ -202,7 +221,9 @@ class TrainState:
     """The model (its parameters are the master weights, updated in place),
     its trainable set, and the SGD optimizer that holds the lr and the
     momentum buffers. The momentum rate is the train step's, as in the JAX
-    package; a buffer that does not exist yet counts as zero."""
+    package; a buffer that does not exist yet counts as zero. ``spans``
+    (None: nothing recorded) is where the train steps time their phases
+    (:func:`make_train_step`)."""
 
     def __init__(self, model: torch.nn.Module, lr: float,
                  training_layers: Optional[Sequence[str]] = None):
@@ -211,6 +232,7 @@ class TrainState:
         self.optimizer = _sgd(
             freeze.apply_training_layers(model, training_layers), lr, 0.9)
         self.step = 0
+        self.spans: Optional[HostSpans] = None
 
     @classmethod
     def create(cls, model: torch.nn.Module, lr: float,
@@ -256,18 +278,30 @@ def make_train_step(model: torch.nn.Module, num_classes: int,
     trainable parameters only, then one SGD-with-momentum update of
     ``state``'s parameters in place. With dropout, the step's masks come
     from ``dropout_generator(0, state.step)``, as the JAX step folds the
-    step into ``jax.random.key(0)``."""
+    step into ``jax.random.key(0)``.
+
+    With ``state.spans`` set, the call's phases are its spans, one after
+    another with no gap, all of step ``state.step`` as ``prep`` reads it:
+    ``prep`` (the gradients' reset, the valid count, the dropout
+    generator, the route's volumes, the loss and counts at zero), per
+    volume those of
+    :func:`_train_volumes`, then ``update`` (SGD and the step count)."""
 
     def step(state: TrainState, inputs: torch.Tensor,
              labels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        _begin(state, model, momentum)
-        denom = (labels != background).sum().clamp_min(1).float()
-        gen = (dropout_generator(0, state.step, inputs.device)
-               if model.dropout > 0 else None)
-        loss, counts = _train_volumes(model, model, inputs, labels, denom,
-                                      inputs.device, gen, num_classes,
-                                      background)
-        _finish(state)
+        spans, sid, dev = state.spans, state.step, inputs.device
+        with span(spans, "prep", sid, dev):
+            _begin(state, model, momentum)
+            denom = (labels != background).sum().clamp_min(1).float()
+            gen = (dropout_generator(0, sid, dev)
+                   if model.dropout > 0 else None)
+            vols = _volumes(model, inputs)
+            loss, counts = _zeros(num_classes, dev)
+        loss, counts = _train_volumes(model, model, inputs, labels, vols,
+                                      denom, dev, gen, num_classes,
+                                      background, loss, counts, spans, sid)
+        with span(spans, "update", sid, dev):
+            _finish(state)
         return loss, counts
 
     return step
@@ -496,24 +530,31 @@ def make_train_step_dp(model: torch.nn.Module, num_classes: int, mesh: Mesh,
     loss is the global batch mean, and every row's gradient meets in the
     home parameters' ``.grad`` before one SGD-with-momentum update. With
     dropout, row i's masks come from ``dropout_generator(0, state.step,
-    device, shard=i)``."""
+    device, shard=i)``. The phases of :func:`make_train_step` go into
+    ``state.spans``, ``prep`` and ``update`` timed on the home device,
+    each row's volumes on the row's; the loss and counts run on through
+    the rows, so one volume per row adds them as the single-device step
+    does."""
 
     def step(state: TrainState, inputs: Sequence[torch.Tensor],
              labels: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
-        _begin(state, model, momentum)
-        _check_rows(mesh, inputs, labels)
-        home = mesh.home
-        denom = sum((lb != background).sum().to(home) for lb in labels)
-        denom = denom.clamp_min(1).float()
-        loss = torch.zeros((), dtype=torch.float32, device=home)
-        counts = torch.zeros((3, num_classes), dtype=torch.int32, device=home)
-        for i, (x, lb) in enumerate(zip(inputs, labels)):
-            gen = (dropout_generator(0, state.step, x.device, shard=i)
-                   if model.dropout > 0 else None)
-            l, c = _train_volumes(_replica(model, x.device), model, x, lb,
-                                  denom, home, gen, num_classes, background)
-            loss, counts = loss + l, counts + c
-        _finish(state)
+        spans, sid, home = state.spans, state.step, mesh.home
+        with span(spans, "prep", sid, home):
+            _begin(state, model, momentum)
+            _check_rows(mesh, inputs, labels)
+            denom = sum((lb != background).sum().to(home) for lb in labels)
+            denom = denom.clamp_min(1).float()
+            rows = [(_replica(model, x.device), x, lb, _volumes(model, x),
+                     dropout_generator(0, sid, x.device, shard=i)
+                     if model.dropout > 0 else None)
+                    for i, (x, lb) in enumerate(zip(inputs, labels))]
+            loss, counts = _zeros(num_classes, home)
+        for forward, x, lb, vols, gen in rows:
+            loss, counts = _train_volumes(forward, model, x, lb, vols, denom,
+                                          home, gen, num_classes, background,
+                                          loss, counts, spans, sid)
+        with span(spans, "update", sid, home):
+            _finish(state)
         return loss, counts
 
     return step
