@@ -8,8 +8,9 @@ bit for bit; its spans come in the order ``prep``, per volume
 ``forward``, ``loss``, ``backward``, ``counts``, then ``update``, all of
 the step that ``state.step`` names when the call starts, one after
 another and covering the call; the timeline's ``intervals`` are the host
-marks that ``benchmark.trace.read`` names idle gaps by; and steps run on
-two threads into one recorder keep their records apart. Device times
+marks that ``benchmark.trace.read`` names idle gaps by; steps run on
+two threads into one recorder keep their records apart; and a span opened
+with no step inside a step's phase takes that step, on its own thread. Device times
 need a card: ``benchmark/tests/test_bench_program_spans.py``.
 """
 
@@ -190,6 +191,32 @@ def test_concurrent_steps_keep_their_records_apart():
             assert a.end_ns <= b.start_ns
     assert len({steps[0][0].thread, steps[100][0].thread}) == 2
     assert sum(spans.calls.values()) == len(spans.records)
+
+
+def test_a_span_without_a_step_takes_the_step_open_on_its_thread():
+    spans = HostSpans(timeline=True)
+    both = threading.Barrier(2)
+
+    def run(sid):
+        with span(spans, "forward", sid):
+            both.wait(timeout=60)  # the two steps' phases open at once
+            with span(spans, "inner"):
+                both.wait(timeout=60)
+        with span(spans, "after"):
+            pass
+
+    threads = [threading.Thread(target=run, args=(k,)) for k in (3, 7)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads)
+    by_thread = {}
+    for r in spans.records:
+        by_thread.setdefault(r.thread, {})[r.name] = r.step
+    assert sorted(by_thread.values(), key=lambda d: d["forward"]) == [
+        {"forward": 3, "inner": 3, "after": None},
+        {"forward": 7, "inner": 7, "after": None}]
 
 
 def test_off_is_one_shared_noop_and_keeps_no_records():

@@ -29,15 +29,38 @@ _DEFAULT_MODELS = {
 }
 
 
+# architecture -> (training_layers, fine_tunning_layers) of transfer
+# learning by default: the head, then the decoder
+TRANSFER_LAYERS = {
+    "unet3d": (["final_conv"], ["decoders.2", "decoders.1", "decoders.0"]),
+    "swin_unetr": (["out"], ["decoder1", "decoder2", "decoder3", "decoder4",
+                             "decoder5"]),
+}
+
+
+def transfer_layers(architecture: str):
+    """``TRANSFER_LAYERS[architecture]``; raises on an unknown one."""
+    if architecture not in TRANSFER_LAYERS:
+        raise ValueError(f"unknown architecture {architecture!r}; known: "
+                         f"{', '.join(TRANSFER_LAYERS)}")
+    return TRANSFER_LAYERS[architecture]
+
+
 @dataclasses.dataclass
 class ModelConfig:
     """``dict_model`` — architecture + transfer-freezing config.
 
     Field-by-field defaults mirror ref pattern_class.py:64-99 and
-    transfer_learning/transfer_learning.py:58-77.
+    transfer_learning/transfer_learning.py:58-77. ``architecture`` picks
+    the model (``method/base.py`` ``_make_model``): ``"unet3d"``, the
+    reference's U-Net, or ``"swin_unetr"``, MONAI's Swin UNETR, sized by
+    ``feature_size`` (the U-Net's fields then go unread). The transfer
+    layers default to the architecture's :data:`TRANSFER_LAYERS`.
     """
 
     name: str = "UnknownModel"
+    architecture: str = "unet3d"
+    feature_size: int = 48
     num_filter: int = 64            # init_channel_number
     num_channel: int = 1            # in_channels
     interpolate: bool = True
@@ -46,10 +69,10 @@ class ModelConfig:
     num_conv: int = 1
     dropout: float = 0.0  # deepsulci UNet3D exposes it (ref training.py:66)
     training_layers: List[str] = dataclasses.field(
-        default_factory=lambda: ["final_conv"]
+        default_factory=lambda: list(TRANSFER_LAYERS["unet3d"][0])
     )
     fine_tunning_layers: List[str] = dataclasses.field(
-        default_factory=lambda: ["decoders.2", "decoders.1", "decoders.0"]
+        default_factory=lambda: list(TRANSFER_LAYERS["unet3d"][1])
     )
 
     @classmethod
@@ -57,6 +80,9 @@ class ModelConfig:
         known = {f.name for f in dataclasses.fields(cls)}
         kwargs = {k: v for k, v in d.items() if k in known}
         cfg = cls(**kwargs)
+        head, decoder = transfer_layers(cfg.architecture)
+        cfg.training_layers = list(d.get("training_layers", head))
+        cfg.fine_tunning_layers = list(d.get("fine_tunning_layers", decoder))
         if "name" not in d:
             cfg.name = "UnknownModel_hemi" + hemi  # ref pattern_class.py:70
         return cfg

@@ -5,7 +5,8 @@ pattern_class.py:32-368) with the same public API:
 ``extract_data_from_graphs``, ``fill_dict_model``, ``test_thresholds``,
 ``labeling``, ``save_data``, ``save_model``, ``save_results``,
 ``save_params``, ``reset_results``, ``load_saved_model``. The model is the
-port's ``UNet3D`` (``self.model``); ``.mdsm`` files are its ``state_dict``
+port's ``UNet3D`` (``self.model``), or ``SwinUNETR`` where ``dict_model``'s
+``architecture`` is ``"swin_unetr"``; ``.mdsm`` files are its ``state_dict``
 written with ``torch.save``, and every JSON artifact keeps the reference's
 schema.
 
@@ -29,7 +30,8 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from unetsulc_tpu_torch.config import _DEFAULT_MODELS, _DEFAULT_PARAMS, TpuConfig
+from unetsulc_tpu_torch.config import (
+    _DEFAULT_MODELS, _DEFAULT_PARAMS, TpuConfig, transfer_layers)
 from unetsulc_tpu_torch.data.dataset import SulciDataset
 from unetsulc_tpu_torch.data.extract import extract_data
 from unetsulc_tpu_torch.data.voxelize import bucket_size
@@ -37,6 +39,7 @@ from unetsulc_tpu_torch.device import resolve_device
 from unetsulc_tpu_torch.io.container import read_graph
 from unetsulc_tpu_torch.io.translation import FoldLabelsTranslator
 from unetsulc_tpu_torch.models.interop import load_mdsm
+from unetsulc_tpu_torch.models.swin_unetr import SwinUNETR
 from unetsulc_tpu_torch.models.unet3d import UNet3D
 from unetsulc_tpu_torch.ops.cutting import cut_part_ids_multi, cutting
 from unetsulc_tpu_torch.ops.esi import esi_score
@@ -80,7 +83,7 @@ class SulciLabeller:
         self.working_path = working_path or os.getcwd()
 
         # model config defaults (ref pattern_class.py:62-99)
-        self.model: Optional[UNet3D] = None
+        self.model: Optional[torch.nn.Module] = None
         self.dict_model = dict_model
         self.model_name = dict_model.get("name", "UnknownModel_hemi" + hemi)
         self.num_filter = dict_model.get("num_filter", 64)
@@ -90,6 +93,8 @@ class SulciLabeller:
         self.conv_layer_order = dict_model.get("conv_layer_order", "crg")
         self.num_conv = dict_model.get("num_conv", 1)
         self.dropout = dict_model.get("dropout", 0.0)
+        self.architecture = dict_model.get("architecture", "unet3d")
+        transfer_layers(self.architecture)  # raises on an unknown one
         print("Model name: ", self.model_name)
 
         if translation_file is not None and os.path.exists(translation_file):
@@ -180,7 +185,20 @@ class SulciLabeller:
         dict_model.setdefault("num_conv", 1)
         return dict_model
 
-    def _make_model(self, out_channels: int, **over) -> UNet3D:
+    def _make_model(self, out_channels: int, **over):
+        """The model that ``dict_model``'s ``architecture`` names:
+        ``UNet3D`` from the U-Net's fields and ``over``, or ``SwinUNETR``
+        of ``feature_size`` (of ``over``, only ``in_channels`` and ``seed``
+        apply to it)."""
+        dtype = (torch.bfloat16 if self.tpu.compute_dtype == "bfloat16"
+                 else torch.float32)
+        if self.architecture == "swin_unetr":
+            return SwinUNETR(
+                in_channels=over.get("in_channels", self.num_channel),
+                out_channels=out_channels,
+                feature_size=self.dict_model.get("feature_size", 48),
+                compute_dtype=dtype, device=self.device,
+                seed=over.get("seed", 0))
         kw = dict(
             in_channels=self.num_channel,
             out_channels=out_channels,
@@ -190,11 +208,7 @@ class SulciLabeller:
             init_channel_number=self.num_filter,
             num_conv=self.num_conv,
             dropout=self.dropout,
-            compute_dtype=(
-                torch.bfloat16
-                if self.tpu.compute_dtype == "bfloat16"
-                else torch.float32
-            ),
+            compute_dtype=dtype,
             device=self.device,
             fused_blocks=self.tpu.pallas_blocks,
             remat=self.tpu.remat,

@@ -198,6 +198,8 @@ class TrainingSulciLabeller(SulciLabeller):
         dataset.spans = spans
         if phase == "train":
             state.spans = spans
+        if hasattr(state.model, "spans"):  # a model's own span: train only
+            state.model.spans = spans if phase == "train" else None
         batches = iterate_batches(dataset, batch_size, img_size, epoch=epoch,
                                   alloc_batch=alloc_batch)
         for inputs, labels, real in device_iterator(
@@ -217,6 +219,8 @@ class TrainingSulciLabeller(SulciLabeller):
             loss_terms.append(loss * real)
             count_terms.append(c)
             timer.add_batch(voxels)
+        if hasattr(state.model, "spans"):
+            state.model.spans = None
         with span(spans, "fetch"):
             running_loss = float(torch.stack(loss_terms).sum())
             counts = torch.stack(count_terms).sum(0).cpu().numpy().astype(

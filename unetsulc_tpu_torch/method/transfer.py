@@ -7,7 +7,8 @@ fresh head over the new label set, trains only ``training_layers``
 (default ``['final_conv']``), and unfreezes ``fine_tunning_layers``
 (default ``decoders.{2,1,0}``) with lr / 10 when the FineTunning plateau
 trigger fires — or unconditionally at ``epoch == int(0.8 * num_epochs)``
-(ref :384-386).
+(ref :384-386). A Swin UNETR (``architecture: "swin_unetr"``) swaps and
+trains its head ``out`` and unfreezes ``decoder1``-``decoder5``.
 
 Freezing sets ``requires_grad`` by name prefix (``train/freeze.py``), so a
 head-only step records no autograd graph for the trunk and launches no
@@ -20,6 +21,7 @@ from __future__ import annotations
 
 from typing import Optional, Sequence
 
+from unetsulc_tpu_torch.config import transfer_layers
 from unetsulc_tpu_torch.method.training import TrainingSulciLabeller
 from unetsulc_tpu_torch.models.interop import load_mdsm
 from unetsulc_tpu_torch.train.controllers import FineTunning
@@ -56,11 +58,13 @@ class TransferSulciLabeller(TrainingSulciLabeller):
             device=device,
         )
         dict_model = dict_model or {}
-        # freeze config (ref transfer_learning/transfer_learning.py:62-69)
-        self.training_layers = list(
-            dict_model.get("training_layers", ["final_conv"]))
+        # freeze config (ref transfer_learning/transfer_learning.py:62-69);
+        # Swin UNETR's head is ``out``, its decoder ``decoder1-5``
+        head, decoder = transfer_layers(self.architecture)
+        self.head = head[0]
+        self.training_layers = list(dict_model.get("training_layers", head))
         self.fine_tunning_layers = list(dict_model.get(
-            "fine_tunning_layers", ["decoders.2", "decoders.1", "decoders.0"]))
+            "fine_tunning_layers", decoder))
         self.dict_trained_model = dict(dict_trained_model or {})
         self.results = self._results_schema()
 
@@ -111,9 +115,9 @@ class TransferSulciLabeller(TrainingSulciLabeller):
         )
         trunk = {k: v for k, v in load_mdsm(
             self.dict_trained_model["model_file"]).items()
-            if not k.startswith("final_conv")}
+            if not k.startswith(self.head)}
         missing, unexpected = self.model.load_state_dict(trunk, strict=False)
-        if unexpected or any(not k.startswith("final_conv") for k in missing):
+        if unexpected or any(not k.startswith(self.head) for k in missing):
             raise ValueError(
                 f"{self.dict_trained_model['model_file']} does not match the "
                 f"model: missing {missing}, unexpected {unexpected}")

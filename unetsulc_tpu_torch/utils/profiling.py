@@ -88,7 +88,9 @@ class HostSpans:
     default: nothing is timed), and the train steps their phases when
     ``TrainState.spans`` is one. With ``timeline`` or ``device`` every span
     is also kept in ``records`` (in memory, appended under the lock:
-    steps may run on several threads at once)."""
+    steps may run on several threads at once). A span opened with no step
+    inside an open span of the same thread takes that span's step, as
+    ``SwinUNETR``'s ``swin_encoder`` does inside a step's ``forward``."""
 
     def __init__(self, timeline: bool = False, device: bool = False):
         self.seconds: Dict[str, float] = {}
@@ -97,6 +99,7 @@ class HostSpans:
         self.device = device
         self.records: List[Span] = []
         self._lock = threading.Lock()
+        self._open = threading.local()  # .step: the innermost open span's
 
     def add(self, name: str, seconds: float,
             record: Optional[Span] = None) -> None:
@@ -137,8 +140,8 @@ class _Span:
     entry, the reverse at exit, so the recorder's own cost falls inside
     the span and consecutive spans tile their caller."""
 
-    __slots__ = ("spans", "name", "step", "device", "stream", "keep", "ns0",
-                 "t0", "ev0")
+    __slots__ = ("spans", "name", "step", "outer", "device", "stream",
+                 "keep", "ns0", "t0", "ev0")
 
     def __init__(self, spans: HostSpans, name: str, step: Optional[int],
                  device: Optional[torch.device]):
@@ -146,6 +149,10 @@ class _Span:
                                                          device)
 
     def __enter__(self) -> "_Span":
+        self.outer = getattr(self.spans._open, "step", None)
+        if self.step is None:
+            self.step = self.outer
+        self.spans._open.step = self.step
         cuda = (self.spans.device and self.device is not None
                 and self.device.type == "cuda")
         self.keep = self.spans.timeline or cuda
@@ -168,6 +175,7 @@ class _Span:
         record = (Span(self.name, self.step, threading.get_ident(), self.ns0,
                        time.time_ns(), events) if self.keep else None)
         self.spans.add(self.name, seconds, record)
+        self.spans._open.step = self.outer
         return False
 
 
