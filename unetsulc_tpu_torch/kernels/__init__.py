@@ -39,7 +39,8 @@ training step gives the same result in every run.
 The wrappers below take CUDA tensors only: they check device, dtype, shape,
 contiguity and alignment, allocate the outputs, launch on the current
 stream, raise if ``cudaGetLastError()`` reports a failure, and add one to
-their entry of :data:`launch_counts`. The plain PyTorch version of each
+their entry of :data:`launch_counts` (a train step replayed from CUDA
+graphs adds the launches its capture counted: :func:`add_launches`). The plain PyTorch version of each
 kernel lives beside its caller in :mod:`unetsulc_tpu_torch.ops.conv_fused`,
 :mod:`unetsulc_tpu_torch.ops.groupnorm` or
 :mod:`unetsulc_tpu_torch.ops.losses`, which take it for CPU tensors only.
@@ -47,6 +48,7 @@ kernel lives beside its caller in :mod:`unetsulc_tpu_torch.ops.conv_fused`,
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -193,6 +195,10 @@ _lock = threading.Lock()
 
 
 _count_lock = threading.Lock()
+# CUDA-graph captures in progress: the capture stream's handle -> the
+# launches made on it (a graph's launches are counted once, at capture,
+# and added again at each replay: ``train/graphs.py``)
+_recording: Dict[int, Dict[str, int]] = {}
 
 
 def reset_launch_counts() -> None:
@@ -202,9 +208,37 @@ def reset_launch_counts() -> None:
 
 
 def _count(name: str) -> None:
-    """One launch of ``name``; fold threads launch kernels concurrently."""
+    """One launch of ``name``; fold threads launch kernels concurrently.
+    During a capture, the launch made on the capture's stream (from the
+    capturing thread or autograd's) is also the capture's."""
     with _count_lock:
         launch_counts[name] += 1
+        if _recording:
+            rec = _recording.get(torch.cuda.current_stream().cuda_stream)
+            if rec is not None:
+                rec[name] = rec.get(name, 0) + 1
+
+
+@contextlib.contextmanager
+def recording_launches(stream):
+    """The launches made on ``stream`` while the block runs, as a dict
+    that fills in as they are made."""
+    rec: Dict[str, int] = {}
+    with _count_lock:
+        _recording[stream.cuda_stream] = rec
+    try:
+        yield rec
+    finally:
+        with _count_lock:
+            del _recording[stream.cuda_stream]
+
+
+def add_launches(counts: Dict[str, int]) -> None:
+    """Add ``counts`` to :data:`launch_counts`: a replayed graph's launches,
+    which no wrapper counts."""
+    with _count_lock:
+        for name, n in counts.items():
+            launch_counts[name] += n
 
 
 def _nvcc() -> str:

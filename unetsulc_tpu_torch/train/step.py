@@ -23,6 +23,27 @@ Dropout draws from a ``torch.Generator`` on the model's device, seeded
 from ``(0, state.step)`` (:func:`dropout_generator`). Its masks are not
 JAX's: the two frameworks' random bits differ.
 
+On CUDA, :func:`make_train_step`'s calls run from CUDA graphs
+(``train/graphs.py``), so the host's ~1,200 launches of a fused step
+leave its critical path. A call's capture key is what the captured work
+bakes in: its thread and current stream; the inputs' and labels' shapes,
+dtypes and device; the optimizer (``repartition`` makes a new one); each
+group's lr and momentum (``divide_lr``); the trainable parameters and
+their momentum buffers by address (``reset_momentum``: the next step runs
+eagerly and makes new buffers, the one after captures); each frozen
+parameter's version. The first call with a key runs eagerly, the second
+is captured, one graph per phase span (and per span nested in one), and
+replayed; later calls copy the inputs and labels into static buffers,
+replay the graphs inside the phases' spans, and return clones of the
+static loss and counts, so no replay overwrites a result the caller
+holds. At most four keys hold graphs, in one memory pool per thread and
+stream; a key beyond them stays eager. The CPU, dropout (its masks come
+from a host-seeded generator) and a step whose trainable parameters lack
+momentum buffers stay eager, as do :func:`make_eval_step`,
+:func:`make_label_fn` and the sp, sp-halo and dp steps.
+``TrainState.graphs`` logs how each step ran, with each eager one's
+reason.
+
 Eval parity quirk: the torch model applies its final activation in eval
 mode, so the reference's validation loss is CE(softmax(logits)) while the
 train loss is CE(logits); :func:`make_eval_step` reproduces it.
@@ -68,6 +89,7 @@ from unetsulc_tpu_torch.ops.esi import confusion_counts
 from unetsulc_tpu_torch.ops.losses import ce_counts, cross_entropy_sum
 from unetsulc_tpu_torch.parallel.mesh import Mesh
 from unetsulc_tpu_torch.train import freeze
+from unetsulc_tpu_torch.train.graphs import GraphCounts, StepGraphs
 from unetsulc_tpu_torch.utils.profiling import HostSpans, span
 
 
@@ -134,11 +156,15 @@ def _replica(model: torch.nn.Module, device: torch.device,
     return lambda *a, **kw: torch.func.functional_call(wrapped, moved, a, kw)
 
 
-def _begin(state: "TrainState", model, momentum: float) -> None:
+def _bind(state: "TrainState", model, momentum: float) -> None:
     if state.model is not model:
         raise ValueError("state belongs to another model")
     for group in state.optimizer.param_groups:
         group["momentum"] = momentum
+
+
+def _begin(state: "TrainState", model, momentum: float) -> None:
+    _bind(state, model, momentum)
     state.optimizer.zero_grad(set_to_none=True)
 
 
@@ -223,7 +249,9 @@ class TrainState:
     momentum buffers. The momentum rate is the train step's, as in the JAX
     package; a buffer that does not exist yet counts as zero. ``spans``
     (None: nothing recorded) is where the train steps time their phases
-    (:func:`make_train_step`)."""
+    (:func:`make_train_step`), and ``graphs`` logs how
+    :func:`make_train_step`'s calls ran: captured, replayed or eager, and
+    why (``train/graphs.py``)."""
 
     def __init__(self, model: torch.nn.Module, lr: float,
                  training_layers: Optional[Sequence[str]] = None):
@@ -233,6 +261,7 @@ class TrainState:
             freeze.apply_training_layers(model, training_layers), lr, 0.9)
         self.step = 0
         self.spans: Optional[HostSpans] = None
+        self.graphs = GraphCounts()
 
     @classmethod
     def create(cls, model: torch.nn.Module, lr: float,
@@ -273,9 +302,10 @@ def make_train_step(model: torch.nn.Module, num_classes: int,
                     momentum: float = 0.9, background: int = -1) -> Callable:
     """``step(state, inputs (N, X, Y, Z, Cin), labels (N, X, Y, Z)) ->
     (loss, counts (3, num_classes) int32)``, both on the device; the host
-    never waits inside. Forward (train mode; padded logits on the fused
-    path), masked cross-entropy, backward through the kernels for the
-    trainable parameters only, then one SGD-with-momentum update of
+    never waits inside, but in a call that captures. Forward (train mode;
+    padded logits on the fused path), masked cross-entropy, backward
+    through the kernels for the trainable parameters only, then one
+    SGD-with-momentum update of
     ``state``'s parameters in place. With dropout, the step's masks come
     from ``dropout_generator(0, state.step)``, as the JAX step folds the
     step into ``jax.random.key(0)``.
@@ -285,10 +315,27 @@ def make_train_step(model: torch.nn.Module, num_classes: int,
     ``prep`` (the gradients' reset, the valid count, the dropout
     generator, the route's volumes, the loss and counts at zero), per
     volume those of
-    :func:`_train_volumes`, then ``update`` (SGD and the step count)."""
+    :func:`_train_volumes`, then ``update`` (SGD and the step count).
 
-    def step(state: TrainState, inputs: torch.Tensor,
-             labels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    On CUDA the step runs from CUDA graphs (``train/graphs.py``). The
+    capture key is the calling thread and its current stream, the inputs'
+    and labels' shapes, dtypes and device, the optimizer, each group's lr
+    and momentum, the trainable parameters and their momentum buffers,
+    and the frozen parameters' versions. The first call with a key runs
+    as above; the second captures the phases, one graph each (and one per
+    span nested in a phase), and replays them; later calls copy the
+    inputs and labels into the graphs' static buffers (in ``prep``),
+    replay each phase's graphs inside its span, and return clones of the
+    static loss and counts (in ``update``), so a result the caller holds
+    is never overwritten. A capture waits for the device (it hands the
+    eager steps' cached memory back first) and takes its turn with the
+    other threads' captures; a replay does not wait. CPU tensors, dropout,
+    a step before every trainable parameter has its momentum buffer, and
+    a key that comes once four keys hold graphs stay eager;
+    ``state.graphs`` logs how each call ran."""
+
+    def run(state: TrainState, inputs: torch.Tensor,
+            labels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         spans, sid, dev = state.spans, state.step, inputs.device
         with span(spans, "prep", sid, dev):
             _begin(state, model, momentum)
@@ -304,6 +351,14 @@ def make_train_step(model: torch.nn.Module, num_classes: int,
             _finish(state)
         return loss, counts
 
+    graphs = StepGraphs(model, run)
+
+    def step(state: TrainState, inputs: torch.Tensor,
+             labels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        _bind(state, model, momentum)
+        return graphs(state, inputs, labels)
+
+    step.eager = run  # the step without graphs, call by call
     return step
 
 

@@ -101,6 +101,10 @@ class HostSpans:
         self._lock = threading.Lock()
         self._open = threading.local()  # .step: the innermost open span's
 
+    def span(self, name: str, step: Optional[int] = None,
+             device: Optional[torch.device] = None) -> "_Span":
+        return _Span(self, name, step, device)
+
     def add(self, name: str, seconds: float,
             record: Optional[Span] = None) -> None:
         with self._lock:
@@ -187,7 +191,8 @@ def span(spans: Optional[HostSpans], name: str, step: Optional[int] = None,
     """A context that times its block into ``spans[name]``, kept as a
     :class:`Span` of step ``step`` where ``spans`` keeps records, with CUDA
     events on ``device``'s current stream where it records them. With
-    ``spans`` None, one shared context that does nothing."""
+    ``spans`` None, one shared context that does nothing; any other
+    recorder gives its own context, ``spans.span(name, step, device)``."""
     if spans is None:
         return _NOOP
-    return _Span(spans, name, step, device)
+    return spans.span(name, step, device)
